@@ -11,6 +11,13 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    on the inputs the CN step really gives it at ranks 16, 32 and 64, in
    float32 and float64; max relative error (<= 1e-4 f32, <= 1e-10 f64)
    and median time of kernel and plain version.
+3b. Batched kernels: B5-B7 against their plain versions at R = 64 and
+   32, float32 and float64, on B = 8 distinct problems: B5 and B6 on the
+   inputs one als_sweeps_b call gives them (b[i] = (1 + 0.2 i) u_s, x[i] =
+   u_s plus a seeded perturbation inside the masks), B7 whole on distinct
+   flat-spectrum problems (ROADMAP C: on u_s, whose bond spectrum falls to
+   rounding level, its Newton-Schulz gauge is set by rounding noise), plus
+   one B7 case with cg_refine=2, cg_polish=2 at R = 32.
 4. Main path: the d=12 Crank-Nicolson step at ranks 16, 32 and 64 (f32,
    16 warm CG iterations) on a three-mode eigenstate: the 8-step trajectory
    against the closed form (rel <= 1e-3), the implicit residual (<= 1e-2),
@@ -18,6 +25,14 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    agreement of the two 8-step states (rel <= 1e-4), and the kernel launch
    counts per step (B1 = 1, B2 = 1 right + 1 left, B3/B4 = 22/0 at rank 16,
    0/22 at ranks 32 and 64).
+5. Batched path: 512 rank-64 d=12 implicit heat solves (f32, no TF32)
+   through both routes of the bench ladder, explicit_kernel (als_sweeps_b,
+   cg_fused, 16 warm CG iterations: B6 2 launches, B5 22) and
+   sweep_pair_fused (B7, one launch): solves/s and GFLOP/s (median of 3
+   calls after a warm-up) through the kernels and through the plain
+   versions, element 0's residual against the exact tridiagonal operator
+   (<= 1e-2) and the kernel-against-plain agreement of its represented
+   vector (<= 1e-4).
 
 The last two lines are a JSON summary of the kernels and the device line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -44,6 +59,9 @@ CG_ITERS = 16
 TOL = {torch.float32: 1e-4, torch.float64: 1e-10}
 MIDDLE_SITE = 5  # which of the 22 local solves of a step to compare
 
+BATCH, BATCH_CHECK = 512, 8
+BATCHED_RANKS = (64, 32)
+
 # wrapper name -> (label, patched module, source, TPU kernel it replaces)
 KERNELS = {
     "gram_chain_fused": (
@@ -61,7 +79,19 @@ KERNELS = {
     "cg_matfree_fused": (
         "B4", "ttnx_torch.solvers.als_scan",
         "ttnx_torch/csrc/local_cg_mf.cu", "ttnx/kernels/local_cg_mf.py:260"),
+    "cg_matfree_fused_batched": (
+        "B5", "ttnx_torch.solvers.als_scan_batched",
+        "ttnx_torch/csrc/local_cg_mf.cu", "ttnx/kernels/local_cg_mf.py:225"),
+    "env_chain_fused_batched": (
+        "B6", "ttnx_torch.solvers.als_scan_batched",
+        "ttnx_torch/csrc/env_chain.cu", "ttnx/kernels/env_chain.py:346"),
+    "als_fwd_bwd_fused_batched": (
+        "B7", "ttnx_torch.kernels.als_sweep_fused",
+        "ttnx_torch/csrc/als_sweep_fused.cu",
+        "ttnx/kernels/als_sweep_fused.py:545"),
 }
+CN_KERNELS = ("gram_chain_fused", "right_env_chain_fused",
+              "left_env_chain_fused", "cg_solve_fused", "cg_matfree_fused")
 
 
 def log(msg: str) -> None:
@@ -69,7 +99,8 @@ def log(msg: str) -> None:
 
 
 def wrappers():
-    from ttnx_torch.kernels import env_chain, gram, local_cg, local_cg_mf
+    from ttnx_torch.kernels import (als_sweep_fused, env_chain, gram,
+                                    local_cg, local_cg_mf)
 
     return {
         "gram_chain_fused": (gram.gram_chain_fused, gram.gram_chain_plain),
@@ -80,6 +111,13 @@ def wrappers():
         "cg_solve_fused": (local_cg.cg_solve_fused, local_cg.cg_solve_plain),
         "cg_matfree_fused": (local_cg_mf.cg_matfree_fused,
                              local_cg_mf.cg_matfree_plain),
+        "cg_matfree_fused_batched": (local_cg_mf.cg_matfree_fused_batched,
+                                     local_cg_mf.cg_matfree_batched_plain),
+        "env_chain_fused_batched": (env_chain.env_chain_fused_batched,
+                                    env_chain.env_chain_batched_plain),
+        "als_fwd_bwd_fused_batched": (
+            als_sweep_fused.als_fwd_bwd_fused_batched,
+            als_sweep_fused.als_fwd_bwd_plain),
     }
 
 
@@ -123,17 +161,6 @@ def cuda_ms(fn, reps: int = 10, repeats: int = 5) -> float:
     return statistics.median(times)
 
 
-def three_mode_state(d, hg, device):
-    """Sum of three Dirichlet eigenmodes of the grid Laplacian (rank 6):
-    the CN evolution has a closed form."""
-    from ttnx_torch.ops.qtt import qtt_sin
-
-    def mode(lam):
-        return qtt_sin(d, a=hg, b=1 - hg, lam=lam, device=device)
-
-    return mode(1.0) + 0.5 * mode(3.0) + 0.25 * mode(9.0)
-
-
 def cn_analytic(d, hg, h_step, steps):
     j = np.arange(1, 2 ** d + 1)
     out = np.zeros(2 ** d)
@@ -160,7 +187,9 @@ def cn_residual(u_next, u_prev, hg, h_step):
 
 
 def setup(rmax, device, dtype=torch.float32):
-    from ttnx_torch.entry import flagship_cn_step
+    """The CN step on the three-mode state (rank 6), whose evolution has a
+    closed form."""
+    from ttnx_torch.entry import flagship_cn_step, three_mode_state
 
     hg = 1.0 / (2 ** D + 1)
     step_fn, pack, unpack = flagship_cn_step(device, rmax=rmax, d=D,
@@ -203,9 +232,9 @@ def phase_build():
     log(f"build: {so.name} in {time.perf_counter() - t0:.1f} s ({nvcc})")
 
 
-def capture_inputs(rmax, device, dtype):
-    """Run one CN step through the plain versions and keep the arguments
-    each kernel wrapper received (the MIDDLE_SITE-th local solve)."""
+def record_calls(run):
+    """``run()`` through the plain versions; returns ``{wrapper name: [(args,
+    kwargs), ...]}`` of every kernel wrapper call it made."""
     seen = {}
 
     def recorder(name, kernel, plain):
@@ -214,10 +243,17 @@ def capture_inputs(rmax, device, dtype):
             return plain(*args, **kwargs)
         return call
 
-    step_fn, us, _ = setup(rmax, device, dtype)
     with solver_calls(recorder):
-        step_fn(us)
+        run()
     torch.cuda.synchronize()
+    return seen
+
+
+def capture_inputs(rmax, device, dtype):
+    """Run one CN step through the plain versions and keep the arguments
+    each kernel wrapper received (the MIDDLE_SITE-th local solve)."""
+    step_fn, us, _ = setup(rmax, device, dtype)
+    seen = record_calls(lambda: step_fn(us))
     return {name: calls[min(MIDDLE_SITE, len(calls) - 1)]
             for name, calls in seen.items()}
 
@@ -232,37 +268,98 @@ def max_err(got, ref):
     return abs_err, abs_err / scale
 
 
+def hold(name, rmax, dtype, args, kwargs, reps=10, repeats=5, tag=""):
+    """One kernel against its plain version on the same inputs: raises
+    above the tolerance, returns the row of errors and CUDA-event times."""
+    kernel, plain = wrappers()[name]
+    got = kernel(*args, **kwargs)
+    ref = plain(*args, **kwargs)
+    torch.cuda.synchronize()
+    abs_err, rel_err = max_err(got, ref)
+    ms = cuda_ms(lambda: kernel(*args, **kwargs), reps, repeats)
+    plain_ms = cuda_ms(lambda: plain(*args, **kwargs), reps, repeats)
+    big = max((a for a in args if torch.is_tensor(a)), key=torch.numel)
+    shape = "x".join(str(s) for s in big.shape)
+    ok = rel_err <= TOL[dtype]
+    log(f"kernel {KERNELS[name][0]} {name:25s} r{rmax:<3d} "
+        f"{str(dtype)[6:]:8s} in {shape:16s}{tag} max_rel_err "
+        f"{rel_err:.3e} max_abs_err {abs_err:.3e} | kernel {ms:.4f} ms  "
+        f"plain {plain_ms:.4f} ms  {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(
+            f"{name} r{rmax} {dtype}{tag}: kernel disagrees with its plain "
+            f"version, rel err {rel_err:.3e} > {TOL[dtype]:.0e}")
+    return dict(name=name, rmax=rmax, dtype=dtype, abs_err=abs_err,
+                rel_err=rel_err, ms=ms, plain_ms=plain_ms, tag=tag)
+
+
 def phase_kernels(device):
-    fns = wrappers()
     rows = []
     for dtype in (torch.float32, torch.float64):
         for rmax in RANKS:
             inputs = capture_inputs(rmax, device, dtype)
             for name, (args, kwargs) in inputs.items():
-                kernel, plain = fns[name]
-                got = kernel(*args, **kwargs)
-                ref = plain(*args, **kwargs)
-                torch.cuda.synchronize()
-                abs_err, rel_err = max_err(got, ref)
-                ms = cuda_ms(lambda: kernel(*args, **kwargs))
-                plain_ms = cuda_ms(lambda: plain(*args, **kwargs))
-                shape = "x".join(str(s) for s in args[0].shape)
-                ok = rel_err <= TOL[dtype]
-                log(f"kernel {KERNELS[name][0]} {name:22s} r{rmax:<3d} "
-                    f"{str(dtype)[6:]:8s} in0 {shape:14s} max_rel_err "
-                    f"{rel_err:.3e} max_abs_err {abs_err:.3e} | kernel "
-                    f"{ms:.4f} ms  plain {plain_ms:.4f} ms  "
-                    f"{'ok' if ok else 'FAIL'}")
-                if not ok:
-                    raise RuntimeError(
-                        f"{name} r{rmax} {dtype}: kernel disagrees with its "
-                        f"plain version, rel err {rel_err:.3e} > "
-                        f"{TOL[dtype]:.0e}")
-                rows.append(dict(name=name, rmax=rmax, dtype=dtype,
-                                 abs_err=abs_err, rel_err=rel_err, ms=ms,
-                                 plain_ms=plain_ms))
-    if {r["name"] for r in rows} != set(KERNELS):
+                rows.append(hold(name, rmax, dtype, args, kwargs))
+    if {r["name"] for r in rows} != set(CN_KERNELS):
         raise RuntimeError("the CN step did not call every kernel wrapper")
+    return rows
+
+
+def distinct_batch(device, dtype, rmax):
+    """The batched heat problem with BATCH_CHECK distinct problems: b[i] =
+    (1 + 0.2 i) u_s, x[i] = u_s + a seeded perturbation inside the masks."""
+    from ttnx_torch.entry import batched_als_problem
+
+    p = batched_als_problem(device, batch=1, rmax=rmax, dtype=dtype)
+    us, m = p["b_batch"][0], p["masks"]
+    inside = m[:-1][:, :, None, None] * m[1:][:, None, None, :]
+    rng = np.random.default_rng(rmax)
+    noise = torch.as_tensor(rng.standard_normal((BATCH_CHECK,) + us.shape),
+                            dtype=dtype, device=device)
+    b = torch.stack([(1.0 + 0.2 * i) * us for i in range(BATCH_CHECK)])
+    x = us + 1e-2 * float(us.abs().max()) * noise * inside
+    return p, b, x
+
+
+def flat_batch(device, dtype, rmax):
+    """BATCH_CHECK distinct flat-spectrum problems on the same operator."""
+    from ttnx_torch.entry import batched_als_problem, flat_spectrum_stack
+
+    p = batched_als_problem(device, batch=1, rmax=rmax, dtype=dtype)
+    rng = np.random.default_rng(100 + rmax)
+    b = np.stack([flat_spectrum_stack(rng, p["u_rks"], rmax)
+                  for _ in range(BATCH_CHECK)])
+    x = b + 0.3 * np.stack([flat_spectrum_stack(rng, p["u_rks"], rmax)
+                            for _ in range(BATCH_CHECK)])
+    return p, *(torch.as_tensor(a, dtype=dtype, device=device)
+                for a in (b, x))
+
+
+def phase_batched_kernels(device):
+    from ttnx_torch.solvers.als_scan_batched import als_sweeps_b
+
+    rows = []
+    for dtype in (torch.float32, torch.float64):
+        for rmax in BATCHED_RANKS:
+            p, b, x = distinct_batch(device, dtype, rmax)
+            seen = record_calls(lambda: als_sweeps_b(
+                p["lhs_stack"], b, x, p["masks"], 2, cg_iters=CG_ITERS,
+                solver="cg_fused"))
+            args, kwargs = seen["cg_matfree_fused_batched"][MIDDLE_SITE]
+            rows.append(hold("cg_matfree_fused_batched", rmax, dtype, args,
+                             kwargs))
+            for (args, kwargs), tag in zip(seen["env_chain_fused_batched"],
+                                           (" right", " left")):
+                rows.append(hold("env_chain_fused_batched", rmax, dtype,
+                                 args, kwargs, tag=tag))
+            p, b, x = flat_batch(device, dtype, rmax)
+            sweep = (p["lhs_stack"], b, x, p["masks"])
+            rows.append(hold("als_fwd_bwd_fused_batched", rmax, dtype, sweep,
+                             {}, reps=1, repeats=3))
+            if rmax == 32 and dtype == torch.float32:
+                rows.append(hold("als_fwd_bwd_fused_batched", rmax, dtype,
+                                 sweep, dict(cg_refine=2, cg_polish=2),
+                                 reps=1, repeats=3, tag=" refine2 polish2"))
     return rows
 
 
@@ -301,10 +398,11 @@ def phase_main_path(device):
         torch.cuda.synchronize()
         per_step = {k: v - before[k] for k, v in launch_counts().items()}
         dense_k = 2 * rmax * rmax <= 1024  # M = R n R: B3 below, B4 above
-        want = {"gram_chain_fused": 1, "right_env_chain_fused": 1,
-                "left_env_chain_fused": 1,
-                "cg_solve_fused": 2 * (D - 1) if dense_k else 0,
-                "cg_matfree_fused": 0 if dense_k else 2 * (D - 1)}
+        want = dict.fromkeys(per_step, 0)
+        want.update({"gram_chain_fused": 1, "right_env_chain_fused": 1,
+                     "left_env_chain_fused": 1,
+                     "cg_solve_fused": 2 * (D - 1) if dense_k else 0,
+                     "cg_matfree_fused": 0 if dense_k else 2 * (D - 1)})
         if per_step != want:
             raise RuntimeError(f"r{rmax}: launches per step {per_step}, "
                                f"expected {want}")
@@ -331,10 +429,92 @@ def phase_main_path(device):
             raise RuntimeError(f"cn r{rmax} failed its gates: rel={rel:.3e} "
                                f"residual={res:.3e} agree={agree:.3e}")
     counts = launch_counts()
-    missing = [k for k in KERNELS if counts[k] == 0]
+    missing = [k for k in CN_KERNELS if counts[k] == 0]
     if missing:
         raise RuntimeError(f"main path launched no {missing}")
     return counts
+
+
+def timed_calls(fn, calls=3):
+    """Seconds per call: median of ``calls`` host-timed calls after one
+    warm-up, each ended by a synchronize; returns (seconds, last output)."""
+    out = fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), out
+
+
+def phase_batched_path(device):
+    """Both routes of the batched bench at full width; returns the launch
+    counts of each route's first call."""
+    from ttnx_torch.core.decomp import ttv_to_tensor
+    from ttnx_torch.entry import batched_als_problem
+    from ttnx_torch.kernels import als_sweep_fused
+    from ttnx_torch.kernels.dispatch import launch_counts, reset_launch_counts
+    from ttnx_torch.solvers.als_scan import unpack_tt
+    from ttnx_torch.solvers.als_scan_batched import als_sweeps_b
+    from ttnx_torch.utils.flops import als_sweeps_flops
+
+    p = batched_als_problem(device, batch=BATCH, rmax=64, d=D, h=H_STEP)
+    A, bb, xb, masks = p["lhs_stack"], p["b_batch"], p["x_batch"], p["masks"]
+    hg = 1.0 / (2 ** D + 1)
+    c = H_STEP / (2 * hg ** 2)
+    u0 = ttv_to_tensor(p["u0"]).reshape(-1).double().cpu().numpy()
+
+    def unpack(stack):
+        return unpack_tt(stack, p["u_rks"])
+    routes = {
+        "explicit_kernel": (
+            lambda: als_sweeps_b(A, bb, xb, masks, 2, cg_iters=CG_ITERS,
+                                 solver="cg_fused"),
+            CG_ITERS + 1,
+            {"env_chain_fused_batched": 2,
+             "cg_matfree_fused_batched": 2 * (D - 1)}),
+        "sweep_pair_fused": (
+            lambda: als_sweep_fused.als_fwd_bwd_fused_batched(A, bb, xb,
+                                                              masks),
+            25, {"als_fwd_bwd_fused_batched": 1}),
+    }
+    route_counts = {}
+    for route, (run, applies, launched) in routes.items():
+        reset_launch_counts()
+        run()
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = {k: launched.get(k, 0) for k in counts}
+        if counts != want:
+            raise RuntimeError(f"{route}: launches per call {counts}, "
+                               f"expected {want}")
+        route_counts[route] = counts
+        sec, out = timed_calls(run)
+        with plain_versions():
+            plain_sec, plain_out = timed_calls(run)
+        if out.shape != xb.shape or not bool(torch.isfinite(out).all()):
+            raise RuntimeError(f"{route}: output is not a finite "
+                               f"{tuple(xb.shape)} stack")
+        x0 = dense(unpack, out[0])
+        lhs = x0 + c * (2 * x0 - np.pad(x0[1:], (0, 1))
+                        - np.pad(x0[:-1], (1, 0)))
+        res = float(np.linalg.norm(lhs - u0) / np.linalg.norm(u0))
+        agree = float(np.linalg.norm(x0 - dense(unpack, plain_out[0]))
+                      / np.linalg.norm(x0))
+        gflops = BATCH * als_sweeps_flops(D, 64, A.shape[1], 64,
+                                          cg_iters=applies) / sec / 1e9
+        log(f"batched {route} d={D} r64 B={BATCH} f32: {BATCH / sec:.2f} "
+            f"solves/s ({gflops:.2f} GFLOP/s, {sec * 1e3:.1f} ms/call) | "
+            f"plain {BATCH / plain_sec:.2f} solves/s ({plain_sec * 1e3:.1f} "
+            f"ms/call) | residual[0] {res:.3e} (<= 1e-2) | kernel vs plain "
+            f"vector[0] rel {agree:.3e} (<= 1e-4) | launches/call "
+            f"{ {k: v for k, v in counts.items() if v} }")
+        if not (np.isfinite(res) and res <= 1e-2 and agree <= 1e-4):
+            raise RuntimeError(f"{route} failed its gates: residual={res:.3e}"
+                               f" agree={agree:.3e}")
+    return route_counts
 
 
 def main() -> int:
@@ -350,8 +530,12 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_device()
     phase_build()
-    rows = phase_kernels(device)
+    rows = phase_kernels(device) + phase_batched_kernels(device)
     counts = phase_main_path(device)
+    for route_counts in phase_batched_path(device).values():
+        for name, n in route_counts.items():
+            if name not in CN_KERNELS:
+                counts[name] += n
     # one summary row per kernel, f32, at the rank where the path runs it
     pick = {"cg_solve_fused": 16}
     summary = []

@@ -1,4 +1,4 @@
-"""The Hopper kernels B1-B4 against their plain versions on a CUDA card.
+"""The Hopper kernels B1-B7 against their plain versions on a CUDA card.
 
 Every test here needs a card and skips without one. This file imports no
 jax, so on a machine with a card and no jax it runs without the suite's
@@ -7,8 +7,9 @@ conftest:
     python -m pytest --noconftest -o addopts="" -m cuda tests/test_torch_cuda.py
 
 Shapes are deliberately ragged (not multiples of the 64-wide GEMM tiles)
-so the edge masking of every kernel is exercised. Tolerances: 1e-10 in
-float64; 1e-5 in float32 for B1/B2 and 1e-4 for B3/B4 (CG amplifies the
+so the edge masking of every kernel is exercised, and the batched kernels
+get distinct problems per batch element. Tolerances: 1e-10 in float64;
+1e-5 in float32 for B1/B2/B6 and 1e-4 for B3/B4/B5/B7 (CG amplifies the
 rounding of f32 products); relative to the largest entry.
 """
 
@@ -16,13 +17,22 @@ import numpy as np
 import pytest
 import torch
 
-from ttnx_torch.kernels.env_chain import (left_env_chain_fused,
+from ttnx_torch.entry import batched_als_problem, flat_spectrum_stack
+from ttnx_torch.kernels.als_sweep_fused import (als_fwd_bwd_fused_batched,
+                                                als_fwd_bwd_plain)
+from ttnx_torch.kernels.env_chain import (env_chain_batched_plain,
+                                          env_chain_fused_batched,
+                                          left_env_chain_fused,
                                           left_env_chain_plain,
                                           right_env_chain_fused,
                                           right_env_chain_plain)
 from ttnx_torch.kernels.gram import gram_chain_fused, gram_chain_plain
 from ttnx_torch.kernels.local_cg import cg_solve_fused, cg_solve_plain
-from ttnx_torch.kernels.local_cg_mf import cg_matfree_fused, cg_matfree_plain
+from ttnx_torch.kernels.local_cg_mf import (cg_matfree_batched_plain,
+                                            cg_matfree_fused,
+                                            cg_matfree_fused_batched,
+                                            cg_matfree_plain)
+from ttnx_torch.solvers.als_scan import rank_masks
 
 DTYPES = [torch.float32, torch.float64]
 
@@ -130,6 +140,66 @@ def test_cg_matfree_kernel(cuda, dtype, warm, R, RA):
     torch.cuda.synchronize()
     _close(got, cg_matfree_plain(L, Ac, Renv, rhs, mask, **kw),
            _tol(dtype, loose=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+def test_cg_matfree_batched_kernel(cuda, dtype, warm):
+    rng = np.random.default_rng(11)
+    B, R, RA = 3, 40, 4
+    local = [_local(rng, R, RA) for _ in range(B)]
+    L, Renv, rhs, x0 = (np.stack([p[k] for p in local]) for k in (0, 2, 3, 5))
+    L_, Ac, Renv_, rhs_, mask, x0_ = _on(cuda, dtype, L, local[0][1], Renv,
+                                         rhs, local[0][4], x0)
+    kw = dict(x0=x0_ if warm else None, iters=10)
+    before = cg_matfree_fused_batched.launches
+    got = cg_matfree_fused_batched(L_, Ac, Renv_, rhs_, mask, **kw)
+    torch.cuda.synchronize()
+    assert cg_matfree_fused_batched.launches == before + 1
+    _close(got, cg_matfree_batched_plain(L_, Ac, Renv_, rhs_, mask, **kw),
+           _tol(dtype, loose=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("left", [False, True], ids=["right", "left"])
+@pytest.mark.parametrize("raw", [False, True], ids=["public", "raw"])
+def test_env_chain_batched_kernel(cuda, dtype, left, raw):
+    rng = np.random.default_rng(13)
+    B, d, R, RA, Rb = 3, 4, 20, 3, 12
+    x = rng.standard_normal((B, d, R, 2, R)) / np.sqrt(R)
+    A = rng.standard_normal((d, RA, 2, 2, RA)) / RA
+    b = rng.standard_normal((B, d, Rb, 2, Rb)) / np.sqrt(Rb)
+    args = _on(cuda, dtype, x, A, b)
+    got = env_chain_fused_batched(*args, left=left, raw=raw)
+    torch.cuda.synchronize()
+    _close(got, env_chain_batched_plain(*args, left=left, raw=raw),
+           _tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,kw", [
+    (torch.float32, {}), (torch.float64, {}),
+    (torch.float32, dict(cg_refine=2, cg_polish=2))],
+    ids=["f32", "f64", "f32-refine"])
+def test_sweep_pair_kernel(cuda, dtype, kw):
+    """Distinct flat-spectrum problems (a well-conditioned gauge) in a
+    ragged R = 40 stack of ranks up to 32."""
+    d, rmax, R, B = 6, 32, 40, 3
+    p = batched_als_problem(torch.device("cpu"), batch=1, rmax=rmax, d=d,
+                            dtype=torch.float64)
+    rks = p["u_rks"]
+    rng = np.random.default_rng(17)
+    bb = np.stack([flat_spectrum_stack(rng, rks, R) for _ in range(B)])
+    xb = bb + 0.3 * np.stack([flat_spectrum_stack(rng, rks, R)
+                              for _ in range(B)])
+    A = p["lhs_stack"].numpy()
+    args = _on(cuda, dtype, A, bb, xb, rank_masks(rks, R).numpy())
+    kw = dict(kw, cg_iters=12, ns_iters=(16, 6))
+    got = als_fwd_bwd_fused_batched(*args, **kw)
+    torch.cuda.synchronize()
+    _close(got, als_fwd_bwd_plain(*args, **kw), _tol(dtype, loose=True))
 
 
 @pytest.mark.cuda

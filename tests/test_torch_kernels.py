@@ -1,5 +1,6 @@
 """Kernels B1-B4 of ttnx_torch: plain versions against the ttnx kernels,
-the kernel-or-plain gate, and the C interface of the CUDA build.
+the kernel-or-plain gate, and the C interface of the CUDA build (all
+kernels).
 
 The ttnx kernels run as ttnx's own tests run them on the CPU
 (``interpret=True``). The ttnx env-chain and matrix-free CG kernels compute
@@ -28,6 +29,7 @@ from ttnx.kernels.local_cg_mf import cg_matfree_fused as j_mf
 from ttnx.solvers.als_scan import _local_solve_padded as j_local_solve
 
 from ttnx_torch.kernels import _build, dispatch
+from ttnx_torch.kernels import als_sweep_fused  # noqa: F401  (registers B7)
 from ttnx_torch.kernels.env_chain import (left_env_chain_fused,
                                           left_env_chain_plain,
                                           right_env_chain_fused,
@@ -280,7 +282,8 @@ def test_gate_rejects_other_devices_and_types():
                               torch.empty(2, dtype=torch.float64))
     assert set(dispatch.launch_counts()) == {
         "gram_chain_fused", "right_env_chain_fused", "left_env_chain_fused",
-        "cg_solve_fused", "cg_matfree_fused"}
+        "cg_solve_fused", "cg_matfree_fused", "cg_matfree_fused_batched",
+        "env_chain_fused_batched", "als_fwd_bwd_fused_batched"}
 
 
 def test_bicgstab_fused_names_missing_kernel():
@@ -304,9 +307,9 @@ def _c_entries():
         text = src.read_text()
         for m in re.finditer(r'extern "C" int (ttnx_\w+)\(([^)]*)\)', text):
             out[m.group(1)] = len(m.group(2).split(","))
-        macro = re.search(r'#define (TTNX_\w+)\((NAME[^)]*)\)\s*\\\s*'
-                          r'extern "C" int NAME\(([^)]*)\)', text)
-        if macro:
+        for macro in re.finditer(r'#define (TTNX_\w+)\((NAME[^)]*)\)\s*'
+                                 r'\\\s*extern "C" int NAME\(([^)]*)\)',
+                                 text):
             nparams = len(macro.group(3).split(","))
             for m in re.finditer(macro.group(1) + r"\((ttnx_\w+)", text):
                 out[m.group(1)] = nparams
@@ -324,5 +327,5 @@ def test_c_entries_match_ctypes_signatures():
 def test_build_sources_and_flags():
     names = {p.name for p in _build._sources()}
     assert {"gram_chain.cu", "env_chain.cu", "local_cg.cu", "local_cg_mf.cu",
-            "common.cuh"} <= names
+            "als_sweep_fused.cu", "common.cuh"} <= names
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

@@ -78,15 +78,18 @@ __device__ void gemm_tile(int M, int N, int K, int m0, int n0, const LA& la,
     }
 }
 
-// All tiles of an (M, N) product, spread over the groups of one block.
+// All tiles of an (M, N) product, spread over the groups of one block;
+// tile t goes to group (g0 + t) % ngroups, so two independent products
+// with different g0 can run side by side between two barriers.
 template <typename T, typename LA, typename LB, typename ST>
 __device__ void gemm_block(int M, int N, int K, const LA& la, const LB& lb,
-                           const ST& st, T* smem) {
+                           const ST& st, T* smem, int g0 = 0) {
   const int group = threadIdx.x / kGroup, gtid = threadIdx.x % kGroup;
   const int ngroups = blockDim.x / kGroup;
   const int tiles_n = (N + kBN - 1) / kBN;
   const int tiles = ((M + kBM - 1) / kBM) * tiles_n;
-  for (int t = group; t < tiles; t += ngroups)
+  for (int t = (group - g0 % ngroups + ngroups) % ngroups; t < tiles;
+       t += ngroups)
     gemm_tile<T>(M, N, K, (t / tiles_n) * kBM, (t % tiles_n) * kBN, la, lb,
                  st, smem + group * kTileSmem, gtid, group);
 }

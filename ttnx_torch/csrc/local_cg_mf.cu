@@ -1,8 +1,10 @@
-// Kernel B4: matrix-free fixed-iteration CG for the ALS local solve at
-// ranks >= 32 (and, on the card, every real shape whose dense K would
-// exceed M = 1024).
+// Kernels B4 and B5: matrix-free fixed-iteration CG for the ALS local
+// solve at ranks >= 32 (and, on the card, every real shape whose dense K
+// would exceed M = 1024), for one problem (B4) or a batch of B problems
+// with a shared MPO core and mask (B5).
 //
-// Replaces ttnx/kernels/local_cg_mf.py, cg_matfree_fused (_kernel).
+// Replaces ttnx/kernels/local_cg_mf.py, cg_matfree_fused (_kernel) and
+// cg_matfree_fused_batched (_kernel_batched).
 // Local operator, with mask = m_l (x) 1_n (x) m_r:
 //   K v[a,i,c] = sum L[a,W,b] Ac[W,i,J,w] Renv[c,w,d] (v*mask)[b,J,d]
 //   apply(v)   = (K v) * mask + (1 - mask) * v
@@ -23,6 +25,13 @@
 //   out[a,i,c]   = sum_{W,b} L[a,W,b] m[W,i][b,c] GEMM R x (n R), K = RA R
 // Scalars r.r and p.Kp are block reductions in a fixed order. Later work:
 // spread each apply over many SMs (cluster or cooperative launch).
+//
+// B5 is the same kernel on a grid of B blocks: block bb solves problem bb
+// with its own L, Renv, rhs, x0, scratch slice and CG scalars; Ac and the
+// mask are shared. B4 is the grid of one. At B = 512 and R = 64 the grid
+// is about four waves over the 132 SMs (one 1024-thread block per SM) and
+// the scratch is 184 MB in f32, so the iterates leave L2: each block's
+// working set is 360 KB.
 #include "common.cuh"
 
 namespace ttnx_cg_mf {
@@ -79,15 +88,35 @@ __device__ void apply_k(const MF<T>& f, const T* v, T* out, T* smem) {
   __syncthreads();
 }
 
+// scratch per problem: r, p, Kp (3 V) and the intermediates s, m (2 RA V)
+__host__ __device__ inline size_t scratch_per_problem(int R, int RA, int n) {
+  const size_t V = (size_t)R * n * R;
+  return 3 * V + 2 * (size_t)RA * V;
+}
+
+// Block blockIdx.x solves problem blockIdx.x: L, Renv (R, RA, R), rhs, x0,
+// x (R, n, R) and the scratch advance by one problem per block.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    cg_mf_kernel(MF<T> f, const T* rhs, const T* x0,
-                 T* x, T* r, T* p, T* ap, int iters, int warm) {
+    cg_mf_kernel(MF<T> f, const T* rhs, const T* x0, T* x, T* scratch,
+                 int iters, int warm) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* smem = reinterpret_cast<T*>(smem_raw);
   __shared__ T red[32];
   const int tid = threadIdx.x, nt = blockDim.x;
   const int V = f.R * f.n * f.R;
+  const size_t bb = blockIdx.x;
+  const size_t E = (size_t)f.R * f.RA * f.R;
+  f.L += bb * E;
+  f.Renv += bb * E;
+  rhs += bb * V;
+  x0 += bb * V;
+  x += bb * V;
+  T* r = scratch + bb * scratch_per_problem(f.R, f.RA, f.n);
+  T* p = r + V;
+  T* ap = p + V;
+  f.s = ap + V;
+  f.m = f.s + (size_t)f.n * f.RA * f.R * f.R;
 
   for (int i = tid; i < V; i += nt) x[i] = warm ? x0[i] * f.mask[i] : T(0);
   __syncthreads();
@@ -126,9 +155,8 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T>
 int cg_matfree(const T* L, const T* Ac, const T* Renv, const T* rhs,
-               const T* mask, const T* x0, T* out, T* scratch, int R, int RA,
-               int n, int iters, int warm, cudaStream_t s) {
-  const size_t V = (size_t)R * n * R;
+               const T* mask, const T* x0, T* out, T* scratch, int B, int R,
+               int RA, int n, int iters, int warm, cudaStream_t s) {
   MF<T> f;
   f.L = L;
   f.Ac = Ac;
@@ -137,16 +165,11 @@ int cg_matfree(const T* L, const T* Ac, const T* Renv, const T* rhs,
   f.R = R;
   f.RA = RA;
   f.n = n;
-  T* r = scratch;
-  T* p = r + V;
-  T* ap = p + V;
-  f.s = ap + V;
-  f.m = f.s + (size_t)n * RA * R * R;
   const size_t smem = (kThreads / kGroup) * kTileSmem * sizeof(T);
   cudaFuncSetAttribute(cg_mf_kernel<T>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
-  cg_mf_kernel<T><<<1, kThreads, smem, s>>>(f, rhs, x0, out, r, p, ap, iters,
+  cg_mf_kernel<T><<<B, kThreads, smem, s>>>(f, rhs, x0, out, scratch, iters,
                                             warm);
   return (int)cudaGetLastError();
 }
@@ -161,9 +184,23 @@ using namespace ttnx_cg_mf;
                       int iters, int warm, void* stream) {                    \
     return cg_matfree<T>((const T*)L, (const T*)Ac, (const T*)Renv,           \
                          (const T*)rhs, (const T*)mask, (const T*)x0,         \
-                         (T*)out, (T*)scratch, R, RA, n, iters, warm,         \
+                         (T*)out, (T*)scratch, 1, R, RA, n, iters, warm,      \
                          (cudaStream_t)stream);                               \
   }
 
 TTNX_MF_ENTRY(ttnx_cg_matfree_f32, float)
 TTNX_MF_ENTRY(ttnx_cg_matfree_f64, double)
+
+#define TTNX_MF_BATCHED_ENTRY(NAME, T)                                        \
+  extern "C" int NAME(const void* L, const void* Ac, const void* Renv,        \
+                      const void* rhs, const void* mask, const void* x0,      \
+                      void* out, void* scratch, int B, int R, int RA, int n,  \
+                      int iters, int warm, void* stream) {                    \
+    return cg_matfree<T>((const T*)L, (const T*)Ac, (const T*)Renv,           \
+                         (const T*)rhs, (const T*)mask, (const T*)x0,         \
+                         (T*)out, (T*)scratch, B, R, RA, n, iters, warm,      \
+                         (cudaStream_t)stream);                               \
+  }
+
+TTNX_MF_BATCHED_ENTRY(ttnx_cg_matfree_batched_f32, float)
+TTNX_MF_BATCHED_ENTRY(ttnx_cg_matfree_batched_f64, double)

@@ -1,10 +1,13 @@
 """Build and load the Hopper kernels.
 
 All sources under ``ttnx_torch/csrc`` compile, at first use, into one shared
-library with a plain C interface::
+library with a plain C interface: one ``nvcc -c`` per source, all started
+together, then one link::
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/ttnx_torch/libttnx_torch_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c csrc/<name>.cu -o <name>.o      (each source)
+    nvcc <the same flags> -shared *.o \\
+         -o build/ttnx_torch/libttnx_torch_<hash>.so
 
 The file name carries a hash of the sources and flags, so an edited kernel
 never loads a stale library. The library is loaded with ``ctypes``; every
@@ -23,12 +26,12 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["lib", "build", "call", "CSRC", "BUILD_DIR"]
+__all__ = ["lib", "build", "call", "query", "CSRC", "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ttnx_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 P, I = ctypes.c_void_p, ctypes.c_int
 # entry point -> argument types (the stream is always the last pointer)
@@ -42,6 +45,19 @@ _SIGNATURES = {
     "cg_solve": [P, P, P, P, I, I, I, P],
     # L, Ac, Renv, rhs, mask, x0, out, scratch, R, RA, n, iters, warm, stream
     "cg_matfree": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+    # the same with B first among the sizes
+    "cg_matfree_batched": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+    # x, A, b, envs, envs_b, scratch, B, d, R, RA, n, Rb, left, raw, stream
+    "env_chain_batched": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    # A, b, x, masks, out, scratch, B, d, R, RA, n, cg_iters, cg_refine,
+    # cg_polish, ns1, ns2, stream
+    "als_sweep_pair": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
+}
+# size queries (no stream, no dtype suffix) -> argument types; return
+# c_longlong
+_QUERIES = {
+    # d, R, RA, n -> scratch elements per problem of als_sweep_pair
+    "als_sweep_pair_scratch": [I, I, I, I],
 }
 
 _LIB = None
@@ -75,18 +91,32 @@ def build() -> Path:
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cus = [str(s) for s in sorted(CSRC.glob("*.cu"))]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cus]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as work:
+        objs, procs = [], []
+        for cu in sorted(CSRC.glob("*.cu")):
+            obj = os.path.join(work, cu.stem + ".o")
+            objs.append(obj)
+            procs.append((cu.name, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(cu), "-o",
+                 obj], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+        failed = []
+        for name, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{name} ({proc.returncode}):\n{err[-4000:]}")
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = os.path.join(work, "lib.so")
+        link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", "-o", tmp,
+                               *objs], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stderr[-8000:]}")
+        os.replace(tmp, so)  # atomic: a concurrent loader never sees half
     BUILD_SECONDS = time.perf_counter() - t0
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stderr[-8000:]}")
-    os.replace(tmp, so)  # atomic: a concurrent loader never sees half a file
     return so
 
 
@@ -100,8 +130,17 @@ def lib():
                 fn = getattr(handle, f"ttnx_{name}_{suffix}")
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
+        for name, argtypes in _QUERIES.items():
+            fn = getattr(handle, f"ttnx_{name}")
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_longlong
         _LIB = handle
     return _LIB
+
+
+def query(name: str, *args) -> int:
+    """Call the size query ``ttnx_<name>`` of the library."""
+    return int(getattr(lib(), f"ttnx_{name}")(*args))
 
 
 def call(name: str, dtype, *args) -> None:

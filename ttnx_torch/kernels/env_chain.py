@@ -1,4 +1,5 @@
-"""Kernel B2: the ALS environment chains (right and left).
+"""Kernels B2 and B6: the ALS environment chains (right and left), for one
+problem (B2) or a batch of problems with a shared operator (B6).
 
 The right-env build is a backward recurrence of pure contractions::
 
@@ -8,9 +9,13 @@ The right-env build is a backward recurrence of pure contractions::
 and the left build its forward mirror. :func:`right_env_chain_fused` and
 :func:`left_env_chain_fused` run the whole chain through the Hopper kernels
 (``csrc/env_chain.cu``) for CUDA tensors and through the plain versions for
-CPU tensors. ``x`` must already carry its rank masks. Every plain
+CPU tensors. :func:`env_chain_fused_batched` builds either chain for B
+problems in one pass of the same kernels (``csrc/env_chain.cu``), one launch
+per phase and site for the whole batch; :func:`env_chain_batched_plain` is
+its plain version. ``x`` must already carry its rank masks. Every plain
 contraction is written as pairwise steps (no three-operand einsum: without
-``opt_einsum`` torch contracts left to right through huge intermediates).
+``opt_einsum`` torch contracts left to right through huge intermediates),
+and takes any leading batch axes on the state, rhs and env operands.
 """
 
 from __future__ import annotations
@@ -22,34 +27,35 @@ from ttnx_torch.kernels.dispatch import counted, require_real, use_kernel
 
 __all__ = ["right_env_chain_fused", "left_env_chain_fused",
            "right_env_chain_plain", "left_env_chain_plain",
+           "env_chain_fused_batched", "env_chain_batched_plain",
            "right_env_update", "right_env_b_update", "left_env_update",
            "left_env_b_update", "boundary_envs"]
 
 
 def right_env_update(xc, Ac, Renv):
     """``new[a,W,b] = sum conj(x)[a,i,p] A[W,i,j,w] x[b,j,q] Renv[p,w,q]``."""
-    t = torch.einsum("bjq,pwq->bjpw", xc, Renv)
-    t = torch.einsum("Wijw,bjpw->Wibp", Ac, t)
-    return torch.einsum("aip,Wibp->aWb", xc.conj(), t)
+    t = torch.einsum("...bjq,...pwq->...bjpw", xc, Renv)
+    t = torch.einsum("Wijw,...bjpw->...Wibp", Ac, t)
+    return torch.einsum("...aip,...Wibp->...aWb", xc.conj(), t)
 
 
 def right_env_b_update(xc, bc, Rb_env):
     """``new_b[a,u] = sum conj(x)[a,i,p] b[u,i,v] Rb[p,v]``."""
-    t = torch.einsum("uiv,pv->uip", bc, Rb_env)
-    return torch.einsum("aip,uip->au", xc.conj(), t)
+    t = torch.einsum("...uiv,...pv->...uip", bc, Rb_env)
+    return torch.einsum("...aip,...uip->...au", xc.conj(), t)
 
 
 def left_env_update(xc, L, Ac):
     """``new[c,w,d] = sum conj(x)[a,i,c] L[a,W,b] A[W,i,j,w] x[b,j,d]``."""
-    t = torch.einsum("aic,aWb->icWb", xc.conj(), L)
-    t = torch.einsum("icWb,Wijw->cbjw", t, Ac)
-    return torch.einsum("cbjw,bjd->cwd", t, xc)
+    t = torch.einsum("...aic,...aWb->...icWb", xc.conj(), L)
+    t = torch.einsum("...icWb,Wijw->...cbjw", t, Ac)
+    return torch.einsum("...cbjw,...bjd->...cwd", t, xc)
 
 
 def left_env_b_update(xc, Lb, bc):
     """``new_b[p,v] = sum conj(x)[a,i,p] Lb[a,u] b[u,i,v]``."""
-    t = torch.einsum("aip,au->ipu", xc.conj(), Lb)
-    return torch.einsum("ipu,uiv->pv", t, bc)
+    t = torch.einsum("...aip,...au->...ipu", xc.conj(), Lb)
+    return torch.einsum("...ipu,...uiv->...pv", t, bc)
 
 
 def boundary_envs(R, RA, Rb, dtype, device):
@@ -61,36 +67,50 @@ def boundary_envs(R, RA, Rb, dtype, device):
     return e, eb
 
 
+def _chain_plain(x, A, b, left):
+    """Either chain over ``x (..., d, R, n, R)`` with any leading batch
+    axes: ``(envs (..., d+1, R, RA, R), envs_b (..., d+1, R, Rb))``."""
+    batch = x.shape[:-4]
+    d, R = x.shape[-4], x.shape[-3]
+    RA, Rb = A.shape[1], b.shape[-3]
+    env, envb = boundary_envs(R, RA, Rb, x.dtype, x.device)
+    env = env.expand(*batch, R, RA, R)
+    envb = envb.expand(*batch, R, Rb)
+    envs, envs_b = [env], [envb]
+    for k in (range(d) if left else range(d - 1, -1, -1)):
+        xk, bk = x[..., k, :, :, :], b[..., k, :, :, :]
+        if left:
+            env = left_env_update(xk, env, A[k])
+            envb = left_env_b_update(xk, envb, bk)
+        else:
+            env = right_env_update(xk, A[k], env)
+            envb = right_env_b_update(xk, bk, envb)
+        envs.append(env)
+        envs_b.append(envb)
+    if not left:
+        envs, envs_b = envs[::-1], envs_b[::-1]
+    return torch.stack(envs, dim=-4), torch.stack(envs_b, dim=-3)
+
+
 def right_env_chain_plain(x, A, b):
     """Plain PyTorch version of the right chain: ``(envs (d+1, R, RA, R),
     envs_b (d+1, R, Rb))`` with ``envs[k]`` the env of sites k..d-1."""
-    d, R, n, _ = x.shape
-    RA, Rb = A.shape[1], b.shape[1]
-    env, envb = boundary_envs(R, RA, Rb, x.dtype, x.device)
-    envs = [env]
-    envs_b = [envb]
-    for k in range(d - 1, -1, -1):
-        env = right_env_update(x[k], A[k], env)
-        envb = right_env_b_update(x[k], b[k], envb)
-        envs.append(env)
-        envs_b.append(envb)
-    return torch.stack(envs[::-1]), torch.stack(envs_b[::-1])
+    return _chain_plain(x, A, b, left=False)
 
 
 def left_env_chain_plain(x, A, b):
     """Plain PyTorch version of the left chain: ``envs[k]`` covers sites
     0..k-1."""
-    d, R, n, _ = x.shape
-    RA, Rb = A.shape[1], b.shape[1]
-    env, envb = boundary_envs(R, RA, Rb, x.dtype, x.device)
-    envs = [env]
-    envs_b = [envb]
-    for k in range(d):
-        env = left_env_update(x[k], env, A[k])
-        envb = left_env_b_update(x[k], envb, b[k])
-        envs.append(env)
-        envs_b.append(envb)
-    return torch.stack(envs), torch.stack(envs_b)
+    return _chain_plain(x, A, b, left=True)
+
+
+def env_chain_batched_plain(x, A, b, *, left: bool = False,
+                            raw: bool = False):
+    """Plain PyTorch version of :func:`env_chain_fused_batched`."""
+    envs, envs_b = _chain_plain(x, A, b, left)
+    if raw:
+        envs = envs.transpose(-3, -2).contiguous()
+    return envs, envs_b
 
 
 def _launch(name, x, A, b):
@@ -135,3 +155,34 @@ def left_env_chain_fused(x, A, b):
     out = _launch("left_env_chain_fused", x, A, b)
     left_env_chain_fused.launches += 1
     return out
+
+
+@counted
+def env_chain_fused_batched(x, A, b, *, left: bool = False,
+                            raw: bool = False):
+    """Env chains of B problems with a shared operator: ``x (B, d, R, n, R)``
+    masked states, ``A (d, RA, n, n, RA)``, ``b (B, d, Rb, n, Rb)``. Returns
+    ``(envs (B, d+1, R, RA, R), envs_b (B, d+1, R, Rb))``, the left chain
+    with ``left=True``; ``raw=True`` gives envs as ``(B, d+1, RA, R, R)``."""
+    if not use_kernel(x, A, b):
+        return env_chain_batched_plain(x, A, b, left=left, raw=raw)
+    require_real("env_chain_fused_batched", x, A, b)
+    B, d, R, n, _ = x.shape
+    RA, Rb = A.shape[1], b.shape[2]
+    if (x.shape != (B, d, R, n, R) or A.shape != (d, RA, n, n, RA)
+            or b.shape != (B, d, Rb, n, Rb)):
+        raise ValueError(f"env_chain_fused_batched: shapes x{tuple(x.shape)}"
+                         f" A{tuple(A.shape)} b{tuple(b.shape)} are not "
+                         f"(B,d,R,n,R), (d,RA,n,n,RA), (B,d,Rb,n,Rb)")
+    x, A, b = x.contiguous(), A.contiguous(), b.contiguous()
+    env_shape = (RA, R, R) if raw else (R, RA, R)
+    envs = torch.empty((B, d + 1) + env_shape, dtype=x.dtype,
+                       device=x.device)
+    envs_b = torch.empty((B, d + 1, R, Rb), dtype=x.dtype, device=x.device)
+    scratch = torch.empty(B * (2 * n * RA * R * R + n * R * Rb),
+                          dtype=x.dtype, device=x.device)
+    _build.call("env_chain_batched", x.dtype, x.data_ptr(), A.data_ptr(),
+                b.data_ptr(), envs.data_ptr(), envs_b.data_ptr(),
+                scratch.data_ptr(), B, d, R, RA, n, Rb, int(left), int(raw))
+    env_chain_fused_batched.launches += 1
+    return envs, envs_b

@@ -1,4 +1,5 @@
-"""Kernel B4: matrix-free fixed-iteration CG for the ALS local solve.
+"""Kernels B4 and B5: matrix-free fixed-iteration CG for the ALS local
+solve, for one problem (B4) or a batch of problems (B5).
 
 Above ``M = R n R = 1024`` the dense local K is not assembled; CG applies
 
@@ -9,6 +10,12 @@ runs the whole solve in one launch of the Hopper kernel
 (``csrc/local_cg_mf.cu``) for CUDA tensors and :func:`cg_matfree_plain` for
 CPU tensors. On the card it serves every real shape, including R < 32
 (it computes what the einsum ``'cg'`` path computes).
+
+:func:`cg_matfree_fused_batched` solves B such systems in one launch of the
+same kernel on a grid of B blocks, with a shared MPO core and mask and one
+set of CG scalars per problem; :func:`cg_matfree_batched_plain` is its
+plain version (and, with its conjugating dot, the batched einsum ``'cg'``
+path for complex dtypes too).
 
 ``x0`` and ``iters`` are keyword-only.
 """
@@ -21,15 +28,17 @@ from ttnx_torch.kernels import _build
 from ttnx_torch.kernels.dispatch import counted, require_real, use_kernel
 from ttnx_torch.kernels.local_cg import _safe_div
 
-__all__ = ["cg_matfree_fused", "cg_matfree_plain", "apply_local_op"]
+__all__ = ["cg_matfree_fused", "cg_matfree_plain", "apply_local_op",
+           "cg_matfree_fused_batched", "cg_matfree_batched_plain"]
 
 
 def apply_local_op(L, Ac, Renv, v):
     """``out[a,i,c] = sum L[a,W,b] Ac[W,i,J,w] Renv[c,w,d] v[b,J,d]`` as
-    pairwise contractions."""
-    s = torch.einsum("bJd,cwd->bJcw", v, Renv)
-    m = torch.einsum("WiJw,bJcw->Wibc", Ac, s)
-    return torch.einsum("aWb,Wibc->aic", L, m)
+    pairwise contractions; ``L``, ``Renv`` and ``v`` may carry the same
+    leading batch axes, ``Ac`` is shared."""
+    s = torch.einsum("...bJd,...cwd->...bJcw", v, Renv)
+    m = torch.einsum("WiJw,...bJcw->...Wibc", Ac, s)
+    return torch.einsum("...aWb,...Wibc->...aic", L, m)
 
 
 def _vdot(a, b):
@@ -37,31 +46,11 @@ def _vdot(a, b):
 
 
 def cg_matfree_plain(L, Ac, Renv, rhs, mask, *, x0=None, iters: int = 32):
-    """Plain PyTorch version of the masked matrix-free CG; returns
-    ``x * mask``."""
-    rhs = rhs * mask
-
-    def apply_k(p):
-        return apply_local_op(L, Ac, Renv, p * mask) * mask + (1.0 - mask) * p
-
-    if x0 is None:
-        x = torch.zeros_like(rhs)
-        r = rhs
-    else:
-        x = x0 * mask
-        r = rhs - apply_k(x)
-    p = r
-    rs = _vdot(r, r)
-    for _ in range(iters):
-        ap = apply_k(p)
-        alpha = _safe_div(rs, _vdot(p, ap))
-        x = x + alpha * p
-        r = r - alpha * ap
-        rs_new = _vdot(r, r)
-        beta = _safe_div(rs_new, rs)
-        p = r + beta * p
-        rs = rs_new
-    return x * mask
+    """Plain PyTorch version of the masked matrix-free CG (the batched one
+    on a batch of one); returns ``x * mask``."""
+    return cg_matfree_batched_plain(
+        L[None], Ac, Renv[None], rhs[None], mask,
+        x0=None if x0 is None else x0[None], iters=iters)[0]
 
 
 @counted
@@ -93,4 +82,76 @@ def cg_matfree_fused(L, Ac, Renv, rhs, mask, *, x0=None, iters: int = 32):
                 x0c.data_ptr(), out.data_ptr(), scratch.data_ptr(),
                 R, RA, n, int(iters), int(x0 is not None))
     cg_matfree_fused.launches += 1
+    return out
+
+
+def _pdot(a, b):
+    """Per-problem ``<a, b>`` over all axes but the leading one."""
+    return (a.conj() * b).reshape(a.shape[0], -1).sum(1)
+
+
+def cg_matfree_batched_plain(L, Ac, Renv, rhs, mask, *, x0=None,
+                             iters: int = 32):
+    """Plain PyTorch version of the batched masked matrix-free CG: ``L/Renv
+    (B, R, RA, R)``, shared ``Ac (RA, n, n, RA)`` and ``mask (R, n, R)``,
+    ``rhs/x0 (B, R, n, R)``; CG scalars per problem. Returns ``x * mask``."""
+    rhs = rhs * mask
+
+    def apply_k(p):
+        return apply_local_op(L, Ac, Renv, p * mask) * mask + (1.0 - mask) * p
+
+    def per_problem(c):
+        return c[:, None, None, None]
+
+    if x0 is None:
+        x = torch.zeros_like(rhs)
+        r = rhs
+    else:
+        x = x0 * mask
+        r = rhs - apply_k(x)
+    p = r
+    rs = _pdot(r, r)
+    for _ in range(iters):
+        ap = apply_k(p)
+        alpha = per_problem(_safe_div(rs, _pdot(p, ap)))
+        x = x + alpha * p
+        r = r - alpha * ap
+        rs_new = _pdot(r, r)
+        p = r + per_problem(_safe_div(rs_new, rs)) * p
+        rs = rs_new
+    return x * mask
+
+
+@counted
+def cg_matfree_fused_batched(L, Ac, Renv, rhs, mask, *, x0=None,
+                             iters: int = 32):
+    """Batched masked matrix-free CG, optionally warm-started at ``x0``:
+    ``L/Renv (B, R, RA, R)``, shared ``Ac (RA, n, n, RA)`` and ``mask
+    (R, n, R)``, ``rhs/x0 (B, R, n, R)``. Returns ``x (B, R, n, R)``."""
+    args = (L, Ac, Renv, rhs, mask) + (() if x0 is None else (x0,))
+    if not use_kernel(*args):
+        return cg_matfree_batched_plain(L, Ac, Renv, rhs, mask, x0=x0,
+                                        iters=iters)
+    require_real("cg_matfree_fused_batched", *args)
+    B, R, RA, _ = L.shape
+    n = rhs.shape[2]
+    vec = (B, R, n, R)
+    if (Renv.shape != (B, R, RA, R) or Ac.shape != (RA, n, n, RA)
+            or rhs.shape != vec or mask.shape != (R, n, R)
+            or (x0 is not None and x0.shape != vec)):
+        raise ValueError("cg_matfree_fused_batched: expected L/Renv "
+                         "(B, R, RA, R), Ac (RA, n, n, RA), rhs/x0 "
+                         "(B, R, n, R), mask (R, n, R)")
+    L, Ac, Renv = L.contiguous(), Ac.contiguous(), Renv.contiguous()
+    rhs, mask = rhs.contiguous(), mask.contiguous()
+    x0c = rhs if x0 is None else x0.contiguous()  # unread when cold
+    out = torch.empty_like(rhs)
+    V = R * n * R
+    scratch = torch.empty(B * (3 * V + 2 * RA * V), dtype=rhs.dtype,
+                          device=rhs.device)
+    _build.call("cg_matfree_batched", rhs.dtype, L.data_ptr(), Ac.data_ptr(),
+                Renv.data_ptr(), rhs.data_ptr(), mask.data_ptr(),
+                x0c.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+                B, R, RA, n, int(iters), int(x0 is not None))
+    cg_matfree_fused_batched.launches += 1
     return out
