@@ -33,6 +33,25 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    versions, element 0's residual against the exact tridiagonal operator
    (<= 1e-2) and the kernel-against-plain agreement of its represented
    vector (<= 1e-4).
+3c. DMRG kernels: B8 (operator-only env chain, right and left) on the
+   inputs one dmrg_eig_sweep gives it at R = 16 (d = 10) and R = 64
+   (d = 12), and B9 (fused Lanczos, M = 1024, iters 8 and 24) on a seeded
+   well-conditioned symmetric K (Q, alphas and betas) and on the K the
+   d = 10 sweep assembles (gauge-free: the smallest Ritz value and its
+   vector up to sign); float32 (<= 1e-4) and float64 (<= 1e-10).
+6. DMRG path: the open XXX chain, f32, TF32 off, split='gram', tol =
+   degen_tol = 1e-8, 8 chained dmrg_eig_sweeps after a warm-up sweep
+   (median of 3 chains): d = 10, rmax = 16 through eig_solver='lanczos'
+   (B8 2 launches a sweep) and 'lanczos_fused' (B8 2, B9 18), and d = 12,
+   rmax = 64 through 'lanczos' (B8 at R = 64). Gates: the last energy
+   within rel 1e-5 of the dense ground energy, every energy finite, the
+   launch counts, and kernels against plain versions (energy rel <= 1e-5,
+   state overlap >= 1 - 1e-4); ms/sweep, GFLOP/s, plain ms/sweep.
+7. TDVP path and batched DMRG (plain torch, no kernel of their own; the
+   batched sweeps run B8): tdvp1_step (16 steps) and tdvp2_step (8 steps)
+   of the d = 10 heat generator on the sine, f32, against the analytic
+   decay (rel <= 1e-3), ms/step; batched_dmrg_eig_sweeps over 4 XXZ
+   chains with per-problem fields equal to the 4 single runs exactly.
 
 The last two lines are a JSON summary of the kernels and the device line
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -62,6 +81,13 @@ MIDDLE_SITE = 5  # which of the 22 local solves of a step to compare
 BATCH, BATCH_CHECK = 512, 8
 BATCHED_RANKS = (64, 32)
 
+# DMRG (bench_dmrg_sweep, bench.py:323-374) and its exact-rank wide twin
+DMRG_CONFIGS = ((10, 16), (12, 64))  # (d, rmax)
+DMRG_ITERS, DMRG_SWEEPS = 8, 8
+LANCZOS_M = 1024
+# TDVP (bench_tdvp_step / bench_tdvp2_step, bench.py:376-503)
+TDVP_D, TDVP_RMAX, TDVP_H = 10, 8, 1e-5
+
 # wrapper name -> (label, patched module, source, TPU kernel it replaces)
 KERNELS = {
     "gram_chain_fused": (
@@ -89,6 +115,12 @@ KERNELS = {
         "B7", "ttnx_torch.kernels.als_sweep_fused",
         "ttnx_torch/csrc/als_sweep_fused.cu",
         "ttnx/kernels/als_sweep_fused.py:545"),
+    "env_chain_A_fused": (
+        "B8", "ttnx_torch.solvers.dmrg_scan",
+        "ttnx_torch/csrc/env_chain.cu", "ttnx/kernels/env_chain.py:238"),
+    "lanczos_fused": (
+        "B9", "ttnx_torch.solvers.dmrg_scan",
+        "ttnx_torch/csrc/lanczos.cu", "ttnx/kernels/lanczos.py:102"),
 }
 CN_KERNELS = ("gram_chain_fused", "right_env_chain_fused",
               "left_env_chain_fused", "cg_solve_fused", "cg_matfree_fused")
@@ -100,7 +132,7 @@ def log(msg: str) -> None:
 
 def wrappers():
     from ttnx_torch.kernels import (als_sweep_fused, env_chain, gram,
-                                    local_cg, local_cg_mf)
+                                    lanczos, local_cg, local_cg_mf)
 
     return {
         "gram_chain_fused": (gram.gram_chain_fused, gram.gram_chain_plain),
@@ -118,6 +150,9 @@ def wrappers():
         "als_fwd_bwd_fused_batched": (
             als_sweep_fused.als_fwd_bwd_fused_batched,
             als_sweep_fused.als_fwd_bwd_plain),
+        "env_chain_A_fused": (env_chain.env_chain_A_fused,
+                              env_chain.env_chain_A_plain),
+        "lanczos_fused": (lanczos.lanczos_fused, lanczos.lanczos_plain),
     }
 
 
@@ -268,14 +303,16 @@ def max_err(got, ref):
     return abs_err, abs_err / scale
 
 
-def hold(name, rmax, dtype, args, kwargs, reps=10, repeats=5, tag=""):
+def hold(name, rmax, dtype, args, kwargs, reps=10, repeats=5, tag="",
+         compare=max_err):
     """One kernel against its plain version on the same inputs: raises
-    above the tolerance, returns the row of errors and CUDA-event times."""
+    above the tolerance, returns the row of errors and CUDA-event times.
+    ``compare(got, ref)`` gives (max abs err, max rel err)."""
     kernel, plain = wrappers()[name]
     got = kernel(*args, **kwargs)
     ref = plain(*args, **kwargs)
     torch.cuda.synchronize()
-    abs_err, rel_err = max_err(got, ref)
+    abs_err, rel_err = compare(got, ref)
     ms = cuda_ms(lambda: kernel(*args, **kwargs), reps, repeats)
     plain_ms = cuda_ms(lambda: plain(*args, **kwargs), reps, repeats)
     big = max((a for a in args if torch.is_tensor(a)), key=torch.numel)
@@ -517,6 +554,241 @@ def phase_batched_path(device):
     return route_counts
 
 
+# ---------------------------------------------------------------------------
+# DMRG and TDVP (slice 3)
+# ---------------------------------------------------------------------------
+
+
+def dmrg_sweeps(p, n, solver, x=None, m=None):
+    """``n`` chained dmrg_eig_sweeps of problem ``p`` (the bench's options);
+    returns (x_stack, masks, energies of the last sweep)."""
+    from ttnx_torch.solvers.dmrg_scan import dmrg_eig_sweep
+
+    x = p["x_stack"] if x is None else x
+    m = p["masks"] if m is None else m
+    E = None
+    for _ in range(n):
+        x, m, E = dmrg_eig_sweep(p["A_stack"], x, m, p["tol"],
+                                 p["degen_tol"], lanczos_iters=DMRG_ITERS,
+                                 eig_solver=solver, split="gram")
+    return x, m, E
+
+
+def ritz_err(got, ref):
+    """B9 on a sweep's K: the smallest Ritz value (relative) and its unit
+    vector up to sign, through the sweep's own Ritz step."""
+    from ttnx_torch.solvers.dmrg_scan import _ritz_from_lanczos
+
+    M = got[0].shape[1]
+    ones = torch.ones(M, dtype=got[0].dtype, device=got[0].device)
+    tg, vg = _ritz_from_lanczos(*got, ones, (M,))
+    tr, vr = _ritz_from_lanczos(*ref, ones, (M,))
+    dv = min(float((vg - vr).norm()), float((vg + vr).norm()))
+    dt = float((tg - tr).abs())
+    return max(dt, dv), max(dt / float(tr.abs()), dv)
+
+
+def spread_K(rng, M, dtype, device):
+    """Symmetric K with eigenvalues spread over [-1, 2] and a unit start:
+    a well-conditioned Lanczos run, compared row by row."""
+    q, _ = np.linalg.qr(rng.standard_normal((M, M)))
+    K = (q * np.linspace(-1.0, 2.0, M)) @ q.T
+    v0 = rng.standard_normal(M)
+    return (torch.as_tensor(0.5 * (K + K.T), dtype=dtype, device=device),
+            torch.as_tensor(v0 / np.linalg.norm(v0), dtype=dtype,
+                            device=device))
+
+
+def phase_dmrg_kernels(device):
+    """3c: B8 and B9 against their plain versions."""
+    from ttnx_torch.entry import dmrg_problem
+    from ttnx_torch.kernels.lanczos import can_fuse_lanczos
+
+    rows = []
+    for dtype in (torch.float32, torch.float64):
+        for d, rmax in DMRG_CONFIGS:
+            p = dmrg_problem(device, d=d, rmax=rmax, dtype=dtype)
+            fused = can_fuse_lanczos(dtype, 4 * rmax * rmax)
+            solver = "lanczos_fused" if fused else "lanczos"
+            seen = record_calls(lambda: dmrg_sweeps(p, 1, solver))
+            for (args, kwargs) in seen["env_chain_A_fused"]:
+                tag = " left" if kwargs.get("left") else " right"
+                rows.append(hold("env_chain_A_fused", rmax, dtype, args,
+                                 kwargs, tag=tag))
+            if not fused:
+                continue
+            calls = seen["lanczos_fused"]
+            if len(calls) != 2 * (d - 1):
+                raise RuntimeError(f"the sweep made {len(calls)} B9 calls")
+            (K, v0), _ = calls[MIDDLE_SITE]
+            for iters in (8, 24):
+                rows.append(hold("lanczos_fused", rmax, dtype, (K, v0),
+                                 dict(iters=iters), compare=ritz_err,
+                                 tag=f" sweep K, iters {iters}, Ritz pair"))
+            rng = np.random.default_rng(LANCZOS_M)
+            K, v0 = spread_K(rng, LANCZOS_M, dtype, device)
+            for iters in (8, 24):
+                rows.append(hold("lanczos_fused", rmax, dtype, (K, v0),
+                                 dict(iters=iters),
+                                 tag=f" spread K, iters {iters}"))
+    return rows
+
+
+def dense_state(x, m):
+    from ttnx_torch.core.decomp import ttv_to_tensor
+    from ttnx_torch.solvers.als_scan import unpack_tt
+
+    rks = [int(v) for v in m.sum(dim=1).tolist()]
+    v = ttv_to_tensor(unpack_tt(x, rks)).reshape(-1).double().cpu().numpy()
+    return v / np.linalg.norm(v)
+
+
+def timed_sweeps(p, solver):
+    """ms/sweep: median over 3 chains of DMRG_SWEEPS sweeps from the
+    start, after one warm-up sweep; returns (ms, x, masks, energies)."""
+    dmrg_sweeps(p, 1, solver)
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        x, m, E = dmrg_sweeps(p, DMRG_SWEEPS, solver)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) / DMRG_SWEEPS * 1e3)
+    return statistics.median(times), x, m, E
+
+
+def phase_dmrg_path(device):
+    """6: the DMRG eigensweeps at full width; returns the launch counts."""
+    from ttnx_torch.entry import dense_xxx_groundstate, dmrg_problem
+    from ttnx_torch.kernels.dispatch import launch_counts, reset_launch_counts
+    from ttnx_torch.utils.flops import dmrg_eig_sweep_flops
+
+    total = {}
+    for d, rmax in DMRG_CONFIGS:
+        E0 = dense_xxx_groundstate(d)
+        p = dmrg_problem(device, d=d, rmax=rmax)
+        RA = p["A_stack"].shape[1]
+        for solver in (("lanczos", "lanczos_fused") if rmax == 16
+                       else ("lanczos",)):
+            reset_launch_counts()
+            ms, x, m, E = timed_sweeps(p, solver)
+            counts = launch_counts()
+            sweeps = 1 + 3 * DMRG_SWEEPS
+            want = dict.fromkeys(counts, 0)
+            want["env_chain_A_fused"] = 2 * sweeps
+            if solver == "lanczos_fused":
+                want["lanczos_fused"] = 2 * (d - 1) * sweeps
+            if counts != want:
+                raise RuntimeError(f"dmrg d={d} r{rmax} {solver}: launches "
+                                   f"{counts}, expected {want}")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            with plain_versions():
+                plain_ms, xp, mp, Ep = timed_sweeps(p, solver)
+            e, ep = float(E[-1]), float(Ep[-1])
+            rel = abs(e - E0) / abs(E0)
+            agree = abs(e - ep) / abs(ep)
+            overlap = abs(float(dense_state(x, m) @ dense_state(xp, mp)))
+            finite = bool(torch.isfinite(E).all() and torch.isfinite(x).all())
+            gflops = dmrg_eig_sweep_flops(d, rmax, RA, 2, DMRG_ITERS) / (
+                ms * 1e-3) / 1e9
+            per_sweep = {k: v // sweeps for k, v in counts.items() if v}
+            log(f"dmrg d={d} r{rmax} {solver:13s} f32: {ms:.3f} ms/sweep "
+                f"({gflops:.2f} GFLOP/s) | plain {plain_ms:.3f} ms/sweep | "
+                f"E {e:.9f} dense {E0:.9f} rel {rel:.3e} (<= 1e-5) | "
+                f"ranks {[int(v) for v in m.sum(dim=1).tolist()]} | kernel "
+                f"vs plain E rel {agree:.3e} (<= 1e-5) overlap "
+                f"{overlap:.9f} (>= 1 - 1e-4) | launches/sweep {per_sweep}")
+            if not (finite and rel <= 1e-5 and agree <= 1e-5
+                    and overlap >= 1 - 1e-4):
+                raise RuntimeError(f"dmrg d={d} r{rmax} {solver} failed its "
+                                   f"gates: finite={finite} rel={rel:.3e} "
+                                   f"agree={agree:.3e} overlap={overlap}")
+    return total
+
+
+def phase_tdvp_path(device):
+    """7: TDVP steps against the analytic decay, and the batched DMRG
+    sweeps against single runs; returns the launch counts of the batch."""
+    from ttnx_torch.core.decomp import ttv_to_tensor
+    from ttnx_torch.entry import dmrg_problem, tdvp_problem
+    from ttnx_torch.kernels.dispatch import launch_counts, reset_launch_counts
+    from ttnx_torch.ops.operators import xxz_tto
+    from ttnx_torch.parallel.batch import batched_dmrg_eig_sweeps
+    from ttnx_torch.solvers.als_scan import pack_op, rank_masks, unpack_tt
+    from ttnx_torch.solvers.dmrg_scan import dmrg_eig_sweep
+    from ttnx_torch.solvers.tdvp_scan import tdvp1_step, tdvp2_step
+
+    p = tdvp_problem(device, d=TDVP_D, rmax=TDVP_RMAX)
+    A, u0 = p["A_stack"], p["u0"]
+    m2 = rank_masks(u0.ranks, TDVP_RMAX, dtype=torch.float32, device=device)
+
+    def tdvp1(n):
+        x = p["x_stack"]
+        for _ in range(n):
+            x = tdvp1_step(A, x, p["masks"], TDVP_H, krylov_dim=8,
+                           imag_real=True)
+        return x, p["masks"]
+
+    def tdvp2(n):
+        x, m = p["x_stack"], m2
+        for _ in range(n):
+            x, m = tdvp2_step(A, x, m, TDVP_H, 0.0, TDVP_RMAX, krylov_dim=10,
+                              imag_real=True, split="gram")
+        return x, m
+
+    u0d = ttv_to_tensor(u0).reshape(-1).double().cpu().numpy()
+    for name, run, n in (("tdvp1_step", tdvp1, 16), ("tdvp2_step", tdvp2, 8)):
+        sec, (x, m) = timed_calls(lambda: run(n))
+        rks = [int(v) for v in m.sum(dim=1).tolist()]
+        got = ttv_to_tensor(unpack_tt(x, rks)).reshape(-1).double().cpu()
+        expect = u0d * np.exp(-p["lam1"] * n * TDVP_H)
+        rel = float(np.linalg.norm(got.numpy() - expect)
+                    / np.linalg.norm(expect))
+        log(f"{name} d={TDVP_D} r{TDVP_RMAX} h={TDVP_H} f32 imag_real: "
+            f"{sec / n * 1e3:.3f} ms/step ({n} steps, median of 3) | rel "
+            f"to the analytic decay {rel:.3e} (<= 1e-3) | ranks {rks}")
+        if not (np.isfinite(rel) and rel <= 1e-3):
+            raise RuntimeError(f"{name} failed its gate: rel={rel:.3e}")
+
+    d, rmax, B = DMRG_CONFIGS[0][0], DMRG_CONFIGS[0][1], 4
+    fields = [0.0, 0.25, 0.5, 0.75]  # transverse: distinct ground states
+    A6 = torch.stack([pack_op(xxz_tto(d, delta=0.5, h=f, field="x",
+                                      device=device).astype(torch.float32), 5)
+                      for f in fields[:B]])
+    starts = [dmrg_problem(device, d=d, rmax=rmax, seed=3 + i)
+              for i in range(B)]
+    xb = torch.stack([s["x_stack"] for s in starts])
+    mb = torch.stack([s["masks"] for s in starts])
+    tol = starts[0]["tol"]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    _, _, Eb = batched_dmrg_eig_sweeps(A6, xb, mb, tol, tol,
+                                       n_sweeps=2, lanczos_iters=DMRG_ITERS,
+                                       split="gram")
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    counts = launch_counts()
+    if counts["env_chain_A_fused"] != 2 * 2 * B:
+        raise RuntimeError(f"batched dmrg: launches {counts}")
+    singles = []
+    for i in range(B):
+        x, m, Es = xb[i], mb[i], []
+        for _ in range(2):
+            x, m, E = dmrg_eig_sweep(A6[i], x, m, tol, tol,
+                                     lanczos_iters=DMRG_ITERS, split="gram")
+            Es.append(E)
+        singles.append(torch.cat(Es))
+    same = torch.equal(Eb, torch.stack(singles))
+    log(f"batched_dmrg_eig_sweeps XXZ d={d} r{rmax} B={B} fields {fields} "
+        f"f32 2 sweeps: {sec * 1e3:.1f} ms | last energies "
+        f"{[round(float(e), 6) for e in Eb[:, -1]]} | equal to the single "
+        f"runs: {same} | B8 launches {counts['env_chain_A_fused']}")
+    if not (same and bool(torch.isfinite(Eb).all())):
+        raise RuntimeError("batched dmrg differs from the single runs")
+    return counts
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -530,14 +802,21 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     phase_device()
     phase_build()
-    rows = phase_kernels(device) + phase_batched_kernels(device)
+    rows = (phase_kernels(device) + phase_batched_kernels(device)
+            + phase_dmrg_kernels(device))
     counts = phase_main_path(device)
-    for route_counts in phase_batched_path(device).values():
-        for name, n in route_counts.items():
+    later = list(phase_batched_path(device).values())
+    later += [phase_dmrg_path(device), phase_tdvp_path(device)]
+    for path_counts in later:
+        for name, n in path_counts.items():
             if name not in CN_KERNELS:
                 counts[name] += n
+    missing = [k for k in KERNELS if counts[k] == 0]
+    if missing:
+        raise RuntimeError(f"the main paths launched no {missing}")
     # one summary row per kernel, f32, at the rank where the path runs it
-    pick = {"cg_solve_fused": 16}
+    # (B9: the sweep's own K at iters 8, the first B9 row)
+    pick = {"cg_solve_fused": 16, "lanczos_fused": 16}
     summary = []
     for name, (label, _, source, replaces) in KERNELS.items():
         r = next(r for r in rows if r["name"] == name

@@ -1,4 +1,4 @@
-"""The Hopper kernels B1-B7 against their plain versions on a CUDA card.
+"""The Hopper kernels B1-B9 against their plain versions on a CUDA card.
 
 Every test here needs a card and skips without one. This file imports no
 jax, so on a machine with a card and no jax it runs without the suite's
@@ -9,8 +9,9 @@ conftest:
 Shapes are deliberately ragged (not multiples of the 64-wide GEMM tiles)
 so the edge masking of every kernel is exercised, and the batched kernels
 get distinct problems per batch element. Tolerances: 1e-10 in float64;
-1e-5 in float32 for B1/B2/B6 and 1e-4 for B3/B4/B5/B7 (CG amplifies the
-rounding of f32 products); relative to the largest entry.
+1e-5 in float32 for B1/B2/B6/B8 and 1e-4 for B3/B4/B5/B7/B9 (CG and
+Lanczos amplify the rounding of f32 products); relative to the largest
+entry.
 """
 
 import numpy as np
@@ -20,13 +21,16 @@ import torch
 from ttnx_torch.entry import batched_als_problem, flat_spectrum_stack
 from ttnx_torch.kernels.als_sweep_fused import (als_fwd_bwd_fused_batched,
                                                 als_fwd_bwd_plain)
-from ttnx_torch.kernels.env_chain import (env_chain_batched_plain,
+from ttnx_torch.kernels.env_chain import (env_chain_A_fused,
+                                          env_chain_A_plain,
+                                          env_chain_batched_plain,
                                           env_chain_fused_batched,
                                           left_env_chain_fused,
                                           left_env_chain_plain,
                                           right_env_chain_fused,
                                           right_env_chain_plain)
 from ttnx_torch.kernels.gram import gram_chain_fused, gram_chain_plain
+from ttnx_torch.kernels.lanczos import lanczos_fused, lanczos_plain
 from ttnx_torch.kernels.local_cg import cg_solve_fused, cg_solve_plain
 from ttnx_torch.kernels.local_cg_mf import (cg_matfree_batched_plain,
                                             cg_matfree_fused,
@@ -239,3 +243,80 @@ def test_cn_step_kernels_match_plain_f64(cuda, rmax):
             setattr(mod, name, fn)
     # represented vectors, not cores: QR/eigh signs may differ
     _close(ttv_to_tensor(unpack(got)), ttv_to_tensor(unpack(ref)), 1e-10)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("left", [False, True], ids=["right", "left"])
+@pytest.mark.parametrize("R", [16, 64])
+def test_env_chain_A_kernel(cuda, dtype, left, R):
+    """B8 on a masked state (the last three bonds of every core padded)."""
+    rng = np.random.default_rng(R)
+    d, RA = 5, 5
+    x = rng.standard_normal((d, R, 2, R)) / np.sqrt(R)
+    x[:, R - 3:] = 0.0
+    x[..., R - 3:] = 0.0
+    A = rng.standard_normal((d, RA, 2, 2, RA)) / RA
+    xt, At = _on(cuda, dtype, x, A)
+    before = env_chain_A_fused.launches
+    got = env_chain_A_fused(xt, At, left=left)
+    torch.cuda.synchronize()
+    assert env_chain_A_fused.launches == before + 1
+    assert got.shape == (d + 1, R, RA, R)
+    _close(got, env_chain_A_plain(xt, At, left=left), _tol(dtype))
+
+
+def _spread_K(rng, M):
+    q, _ = np.linalg.qr(rng.standard_normal((M, M)))
+    K = (q * np.linspace(-1.0, 2.0, M)) @ q.T
+    v0 = rng.standard_normal(M)
+    return 0.5 * (K + K.T), v0 / np.linalg.norm(v0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("iters", [8, 24, 32])
+def test_lanczos_kernel(cuda, dtype, iters):
+    """B9 on a well-conditioned K (eigenvalues spread over [-1, 2]): Q,
+    alphas and betas row by row, relative to each output's largest entry
+    (1e-4 f32, 1e-10 f64). In f64 at iters 32 the basis no longer fits
+    in shared memory and lives in the output."""
+    K, v0 = _on(cuda, dtype, *_spread_K(np.random.default_rng(iters), 1024))
+    before = lanczos_fused.launches
+    got = lanczos_fused(K, v0, iters=iters)
+    torch.cuda.synchronize()
+    assert lanczos_fused.launches == before + 1
+    ref = lanczos_plain(K, v0, iters=iters)
+    for g, r in zip(got, ref):
+        _close(g, r, _tol(dtype, loose=True))
+    assert float(got[2][-1]) == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_lanczos_kernel_breakdown(cuda, dtype):
+    """Breakdown: in f64 a K of rank 3 with a start inside its range (the
+    residual reaches rounding level after three steps), in f32 a diagonal
+    K with an eigenvector start (exactly zero after one step; f32 rounding
+    stays above the 1e-12 rule otherwise). The kernel breaks down where
+    the plain version does, and every later row, alpha and beta is exactly
+    zero."""
+    rng = np.random.default_rng(7)
+    M, iters = 1024, 8
+    if dtype == torch.float64:
+        q, _ = np.linalg.qr(rng.standard_normal((M, 3)))
+        K = (q * np.array([1.0, 2.0, 3.0])) @ q.T
+        v0 = q @ np.ones(3) / np.sqrt(3.0)
+    else:
+        K = np.diag(np.r_[1.0, 2.0, 3.0, np.zeros(M - 3)])
+        v0 = np.eye(M)[1]
+    K, v0 = _on(cuda, dtype, K, v0)
+    Q, alphas, betas = lanczos_fused(K, v0, iters=iters)
+    torch.cuda.synchronize()
+    rQ, ra, rb = lanczos_plain(K, v0, iters=iters)
+    assert torch.equal(betas == 0, rb == 0)
+    dead = int(torch.nonzero(betas == 0)[0]) + 1
+    assert dead <= (4 if dtype == torch.float64 else 1)
+    assert bool((Q[dead:] == 0).all()) and bool((alphas[dead:] == 0).all())
+    assert bool((betas[dead - 1:] == 0).all())
+    _close(alphas[:dead], ra[:dead], _tol(dtype, loose=True))

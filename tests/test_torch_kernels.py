@@ -283,7 +283,8 @@ def test_gate_rejects_other_devices_and_types():
     assert set(dispatch.launch_counts()) == {
         "gram_chain_fused", "right_env_chain_fused", "left_env_chain_fused",
         "cg_solve_fused", "cg_matfree_fused", "cg_matfree_fused_batched",
-        "env_chain_fused_batched", "als_fwd_bwd_fused_batched"}
+        "env_chain_fused_batched", "als_fwd_bwd_fused_batched",
+        "env_chain_A_fused", "lanczos_fused"}
 
 
 def test_bicgstab_fused_names_missing_kernel():

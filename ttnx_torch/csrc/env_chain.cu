@@ -29,6 +29,15 @@
 // one launch per phase and site serves all B problems and the chain stays
 // d sequential steps, not B d. B2 is the batch of one. Per-problem
 // offsets are size_t: at B = 512, R = 64 the scratch alone is 64 MB.
+//
+// Kernel B8, the operator-only chain of the DMRG eigensweeps (replaces
+// ttnx/kernels/env_chain.py, env_chain_A_fused, _kernel_A), is the same
+// chain with no rhs (b == nullptr): the s/mix/new phases of the right
+// chain and the t/mix/new phases of the left chain, three launches a
+// site, and 2 n RA R^2 elements of scratch. B2 and B6 run exactly the
+// launches they ran before. At the DMRG bench shape (d = 10, R = 16,
+// RA = 5) a site is 4 RA (R, R) @ (R, R) products, about 0.16 MFLOP: the
+// chain is bound by its 3 d dependent launches, not by FLOPs or bytes.
 #include "common.cuh"
 
 namespace ttnx_env {
@@ -174,8 +183,9 @@ void env_right(const Batch<T>& c, int nb, cudaStream_t s) {
   const int d = c.d, R = c.R, RA = c.RA, n = c.n, Rb = c.Rb;
   const size_t env = (size_t)R * RA * R, envb = (size_t)R * Rb;
   T* mbuf = c.scratch + (size_t)n * RA * R * R;
+  const bool rhs = c.b != nullptr;
   launch_set_e0<T>(c.envs + d * env, (int)env, c.es, nb, s);
-  launch_set_e0<T>(c.envs_b + d * envb, (int)envb, c.ebs, nb, s);
+  if (rhs) launch_set_e0<T>(c.envs_b + d * envb, (int)envb, c.ebs, nb, s);
   const dim3 gs(cdiv(R, kBN), cdiv(R, kBM), nb * n * RA);
   const dim3 gn(cdiv(R, kBN), cdiv(R, kBM), nb * RA);
   const dim3 gsb(cdiv(R, kBN), cdiv(Rb, kBM), nb * n);
@@ -187,6 +197,7 @@ void env_right(const Batch<T>& c, int nb, cudaStream_t s) {
     launch_mix<T>(Ak, c.scratch, mbuf, RA, n, n, RA, n * n * RA, n * RA, RA,
                   1, R * R, c.ss, nb, s);
     right_new<T><<<gn, kGroup, 0, s>>>(c, k);
+    if (!rhs) continue;
     right_sb<T><<<gsb, kGroup, 0, s>>>(c, k);
     right_newb<T><<<gnb, kGroup, 0, s>>>(c, k);
   }
@@ -283,8 +294,9 @@ template <typename T>
 void env_left(const Batch<T>& c, int nb, cudaStream_t s) {
   const int d = c.d, R = c.R, RA = c.RA, n = c.n, Rb = c.Rb;
   T* mbuf = c.scratch + (size_t)n * RA * R * R;
+  const bool rhs = c.b != nullptr;
   launch_set_e0<T>(c.envs, R * RA * R, c.es, nb, s);
-  launch_set_e0<T>(c.envs_b, R * Rb, c.ebs, nb, s);
+  if (rhs) launch_set_e0<T>(c.envs_b, R * Rb, c.ebs, nb, s);
   const dim3 gt(cdiv(R, kBN), cdiv(R, kBM), nb * n * RA);
   const dim3 gn(cdiv(R, kBN), cdiv(R, kBM), nb * RA);
   const dim3 gsb(cdiv(Rb, kBN), cdiv(R, kBM), nb * n);
@@ -296,12 +308,14 @@ void env_left(const Batch<T>& c, int nb, cudaStream_t s) {
     launch_mix<T>(Ak, c.scratch, mbuf, RA, n, n, RA, 1, RA, n * RA,
                   n * n * RA, R * R, c.ss, nb, s);
     left_new<T><<<gn, kGroup, 0, s>>>(c, k);
+    if (!rhs) continue;
     left_sb<T><<<gsb, kGroup, 0, s>>>(c, k);
     left_newb<T><<<gnb, kGroup, 0, s>>>(c, k);
   }
 }
 
-// The whole chain for B problems, in chunks small enough for grid z.
+// The whole chain for B problems, in chunks small enough for grid z;
+// b == nullptr (and Rb == 0) builds the operator envs alone.
 template <typename T>
 int env_chain(const T* x, const T* A, const T* b, T* envs, T* envs_b,
               T* scratch, int B, int d, int R, int RA, int n, int Rb,
@@ -323,9 +337,9 @@ int env_chain(const T* x, const T* A, const T* b, T* envs, T* envs_b,
   for (int b0 = 0; b0 < B; b0 += chunk) {
     const int nb = B - b0 < chunk ? B - b0 : chunk;
     c.x = x + b0 * c.xs;
-    c.b = b + b0 * c.bs;
+    c.b = b ? b + b0 * c.bs : nullptr;
     c.envs = envs + b0 * c.es;
-    c.envs_b = envs_b + b0 * c.ebs;
+    c.envs_b = envs_b ? envs_b + b0 * c.ebs : nullptr;
     c.scratch = scratch + b0 * c.ss;
     if (left)
       env_left<T>(c, nb, s);
@@ -366,3 +380,18 @@ TTNX_ENV_ENTRY(ttnx_env_chain_left_f64, 1, double)
 
 TTNX_ENV_BATCHED_ENTRY(ttnx_env_chain_batched_f32, float)
 TTNX_ENV_BATCHED_ENTRY(ttnx_env_chain_batched_f64, double)
+
+// B8: the operator-only chain of one problem, public layout
+#define TTNX_ENV_A_ENTRY(NAME, LEFT, T)                                      \
+  extern "C" int NAME(const void* x, const void* A, void* envs,              \
+                      void* scratch, int d, int R, int RA, int n,            \
+                      void* stream) {                                        \
+    return env_chain<T>((const T*)x, (const T*)A, nullptr, (T*)envs,         \
+                        nullptr, (T*)scratch, 1, d, R, RA, n, 0, LEFT, 0,    \
+                        (cudaStream_t)stream);                               \
+  }
+
+TTNX_ENV_A_ENTRY(ttnx_env_chain_A_right_f32, 0, float)
+TTNX_ENV_A_ENTRY(ttnx_env_chain_A_right_f64, 0, double)
+TTNX_ENV_A_ENTRY(ttnx_env_chain_A_left_f32, 1, float)
+TTNX_ENV_A_ENTRY(ttnx_env_chain_A_left_f64, 1, double)

@@ -11,6 +11,12 @@ independent rank-64 d=12 implicit heat solves ``(I - h/2 A) x = u0`` sharing
 one operator, for ``als_sweeps_b`` and ``als_fwd_bwd_fused_batched``.
 ``flat_spectrum_stack`` makes distinct, well-conditioned states for holding
 the batched kernels against their plain versions.
+
+``dmrg_problem(device)`` is the DMRG eigensweep workload (the open XXX
+chain from a random orthonormal rank-4 start), ``dense_xxx_groundstate``
+its independent numpy oracle, and ``tdvp_problem(device)`` the
+imaginary-time TDVP workload (the heat generator on a site-0-canonical
+sine), each as ``bench.py`` sets them up.
 """
 
 from __future__ import annotations
@@ -21,14 +27,15 @@ import numpy as np
 
 from ttnx_torch.core.algebra import add_op, scale_op
 from ttnx_torch.core.canonical import tt_round
-from ttnx_torch.core.tt import id_tto, r_and_d_to_rks
-from ttnx_torch.ops.operators import toeplitz_to_qtto
+from ttnx_torch.core.tt import TTVector, id_tto, r_and_d_to_rks, rand_tt
+from ttnx_torch.ops.operators import heisenberg_xyz_tto, toeplitz_to_qtto
 from ttnx_torch.ops.qtt import qtt_sin
 from ttnx_torch.solvers.als_scan import pack_op, pack_tt, rank_masks
 from ttnx_torch.solvers.round_scan import make_cn_step
 
 __all__ = ["entry", "flagship_cn_step", "three_mode_state",
-           "batched_als_problem", "flat_spectrum_stack"]
+           "batched_als_problem", "flat_spectrum_stack", "dmrg_problem",
+           "dense_xxx_groundstate", "tdvp_problem"]
 
 
 def flagship_cn_step(device, rmax: int = 16, d: int = 12, h: float = 1e-9,
@@ -108,3 +115,76 @@ def flat_spectrum_stack(rng, rks, R: int, n: int = 2):
             raise ValueError(f"flat_spectrum_stack: bond ranks {rl} -> {rr}"
                              f" are neither equal nor a factor {n} apart")
     return out
+
+
+def dmrg_problem(device, *, d: int = 10, rmax: int = 16,
+                 dtype=torch.float32, seed: int = 3):
+    """The DMRG eigensweep workload on ``device``: the open XXX chain
+    (Pauli convention, MPO rank 5) packed as ``A_stack``, a random
+    normalized left-orthonormal rank-4 start (``torch.Generator`` seeded
+    ``seed``) packed at ``rmax`` as ``x_stack``, its ``masks``, and ``tol =
+    degen_tol = 1e-8``. Returns a dict of those five."""
+    H = heisenberg_xyz_tto(d, jx=1.0, jy=1.0, jz=1.0, device=device)
+    H = H.astype(dtype)
+    x0 = rand_tt(torch.Generator().manual_seed(seed), (2,) * d, rmax=4,
+                 normalise=True, orthogonal=True).astype(dtype).to(device)
+    return dict(A_stack=pack_op(H, max(H.ranks)), x_stack=pack_tt(x0, rmax),
+                masks=rank_masks(x0.ranks, rmax, dtype=dtype, device=device),
+                tol=1e-8, degen_tol=1e-8)
+
+
+def dense_xxx_groundstate(d: int) -> float:
+    """Ground energy of the open XXX chain, ``sum_i sx sx + sy sy + sz sz``
+    over the bonds (Pauli convention), from Kronecker products with numpy
+    and scipy alone: a dense ``eigvalsh`` up to 2^10 states, sparse
+    ``eigsh`` above."""
+    from scipy import sparse
+    from scipy.sparse.linalg import eigsh
+
+    sx = np.array([[0.0, 1.0], [1.0, 0.0]])
+    sy_i = np.array([[0.0, -1.0], [1.0, 0.0]])  # sy = i * sy_i
+    sz = np.diag([1.0, -1.0])
+    N = 2 ** d
+    H = sparse.csr_matrix((N, N))
+    for i in range(d - 1):
+        for P, sgn in ((sx, 1.0), (sy_i, -1.0), (sz, 1.0)):
+            op = sparse.kron(sparse.identity(2 ** i), sparse.kron(P, P))
+            op = sparse.kron(op, sparse.identity(2 ** (d - i - 2)))
+            H = H + sgn * op  # (i sy_i) x (i sy_i) = -(sy_i x sy_i)
+    if N <= 1024:
+        return float(np.linalg.eigvalsh(H.toarray())[0])
+    return float(eigsh(H.tocsr(), k=1, which="SA", tol=0.0)[0][0])
+
+
+def _host_orth0(u, dtype, device) -> TTVector:
+    """Right-canonicalize ``u`` to centre site 0 in float64 numpy on the
+    host, then cast: an on-device float32 orthogonalization costs the
+    TDVP gate several times its budget."""
+    cores = [c.detach().cpu().double().numpy() for c in u.cores]
+    for k in range(len(cores) - 1, 0, -1):
+        rl, nn, rr = cores[k].shape
+        q, r = np.linalg.qr(cores[k].reshape(rl, nn * rr).T)
+        cores[k] = np.ascontiguousarray(q.T.reshape(q.shape[1], nn, rr))
+        cores[k - 1] = np.einsum("anb,cb->anc", cores[k - 1], r)
+    return TTVector([torch.as_tensor(c, dtype=dtype, device=device)
+                     for c in cores])
+
+
+def tdvp_problem(device, d: int = 10, rmax: int = 8, *,
+                 dtype=torch.float32):
+    """The imaginary-time TDVP workload on ``device``: the heat generator
+    ``(0.1 / hg^2) tridiag(1, -2, 1)`` (MPO rank 3) as ``A_stack``, the
+    interior-grid sine ``u0`` (float64, rank 2) packed at ``rmax`` in
+    site-0 canonical form as ``x_stack``, its ``masks`` and ``u_rks``, and
+    the decay rate ``lam1`` of its mode: ``exp(-lam1 t) u0`` is the exact
+    evolution."""
+    hg = 1.0 / (2 ** d + 1)
+    A = ((0.1 / hg ** 2) * toeplitz_to_qtto(-2.0, 1.0, 1.0, d,
+                                            device=device)).astype(dtype)
+    u0 = qtt_sin(d, a=hg, b=1 - hg, device=device)
+    u_rks = r_and_d_to_rks(u0.ranks, (2,) * d, rmax=rmax)
+    return dict(A_stack=pack_op(A, max(A.ranks)),
+                x_stack=pack_tt(_host_orth0(u0, dtype, device), rmax),
+                masks=rank_masks(u_rks, rmax, dtype=dtype, device=device),
+                u_rks=u_rks, u0=u0,
+                lam1=0.1 * (2 - 2 * np.cos(np.pi * hg)) / hg ** 2)

@@ -41,6 +41,11 @@ _SIGNATURES = {
     # x, A, b, envs, envs_b, scratch, d, R, RA, n, Rb, stream
     "env_chain_right": [P, P, P, P, P, P, I, I, I, I, I, P],
     "env_chain_left": [P, P, P, P, P, P, I, I, I, I, I, P],
+    # x, A, envs, scratch, d, R, RA, n, stream
+    "env_chain_A_right": [P, P, P, P, I, I, I, I, P],
+    "env_chain_A_left": [P, P, P, P, I, I, I, I, P],
+    # K, v0, Q, alphas, betas, M, iters, stream
+    "lanczos": [P, P, P, P, P, I, I, P],
     # K, rhs, x0, out, M, iters, warm, stream
     "cg_solve": [P, P, P, P, I, I, I, P],
     # L, Ac, Renv, rhs, mask, x0, out, scratch, R, RA, n, iters, warm, stream

@@ -1,5 +1,6 @@
-"""Kernels B2 and B6: the ALS environment chains (right and left), for one
-problem (B2) or a batch of problems with a shared operator (B6).
+"""Kernels B2, B6 and B8: the environment chains (right and left) of the
+ALS sweeps, for one problem (B2) or a batch of problems with a shared
+operator (B6), and the operator-only chain of the DMRG eigensweeps (B8).
 
 The right-env build is a backward recurrence of pure contractions::
 
@@ -12,7 +13,9 @@ and the left build its forward mirror. :func:`right_env_chain_fused` and
 CPU tensors. :func:`env_chain_fused_batched` builds either chain for B
 problems in one pass of the same kernels (``csrc/env_chain.cu``), one launch
 per phase and site for the whole batch; :func:`env_chain_batched_plain` is
-its plain version. ``x`` must already carry its rank masks. Every plain
+its plain version. :func:`env_chain_A_fused` builds the operator envs
+alone (no rhs), with :func:`env_chain_A_plain` as its plain version.
+``x`` must already carry its rank masks. Every plain
 contraction is written as pairwise steps (no three-operand einsum: without
 ``opt_einsum`` torch contracts left to right through huge intermediates),
 and takes any leading batch axes on the state, rhs and env operands.
@@ -28,6 +31,7 @@ from ttnx_torch.kernels.dispatch import counted, require_real, use_kernel
 __all__ = ["right_env_chain_fused", "left_env_chain_fused",
            "right_env_chain_plain", "left_env_chain_plain",
            "env_chain_fused_batched", "env_chain_batched_plain",
+           "env_chain_A_fused", "env_chain_A_plain",
            "right_env_update", "right_env_b_update", "left_env_update",
            "left_env_b_update", "boundary_envs"]
 
@@ -186,3 +190,40 @@ def env_chain_fused_batched(x, A, b, *, left: bool = False,
                 scratch.data_ptr(), B, d, R, RA, n, Rb, int(left), int(raw))
     env_chain_fused_batched.launches += 1
     return envs, envs_b
+
+
+def env_chain_A_plain(x, A, *, left: bool = False):
+    """Plain PyTorch version of :func:`env_chain_A_fused`."""
+    d, R = x.shape[0], x.shape[1]
+    env, _ = boundary_envs(R, A.shape[1], 1, x.dtype, x.device)
+    envs = [env]
+    for k in (range(d) if left else range(d - 1, -1, -1)):
+        env = (left_env_update(x[k], env, A[k]) if left
+               else right_env_update(x[k], A[k], env))
+        envs.append(env)
+    return torch.stack(envs if left else envs[::-1])
+
+
+@counted
+def env_chain_A_fused(x, A, *, left: bool = False):
+    """Operator-only env chain of the eigensweeps: ``x (d, R, n, R)``
+    masked state, ``A (d, RA, n, n, RA)``. Returns ``envs (d+1, R, RA,
+    R)``: the right chain (``envs[k]`` covers sites k..d-1), or the left
+    chain with ``left=True`` (``envs[k]`` covers sites 0..k-1)."""
+    if not use_kernel(x, A):
+        return env_chain_A_plain(x, A, left=left)
+    require_real("env_chain_A_fused", x, A)
+    d, R, n, _ = x.shape
+    RA = A.shape[1]
+    if x.shape != (d, R, n, R) or A.shape != (d, RA, n, n, RA):
+        raise ValueError(f"env_chain_A_fused: shapes x{tuple(x.shape)} "
+                         f"A{tuple(A.shape)} are not (d,R,n,R), "
+                         f"(d,RA,n,n,RA)")
+    x, A = x.contiguous(), A.contiguous()
+    envs = torch.empty((d + 1, R, RA, R), dtype=x.dtype, device=x.device)
+    scratch = torch.empty(2 * n * RA * R * R, dtype=x.dtype, device=x.device)
+    _build.call("env_chain_A_left" if left else "env_chain_A_right", x.dtype,
+                x.data_ptr(), A.data_ptr(), envs.data_ptr(),
+                scratch.data_ptr(), d, R, RA, n)
+    env_chain_A_fused.launches += 1
+    return envs

@@ -1,5 +1,5 @@
-"""Continuous batching of independent QTT solves: one operator, a batch of
-right-hand sides and initial guesses.
+"""Continuous batching of independent QTT solves: one operator (or one per
+problem), a batch of right-hand sides, initial guesses and states.
 
 :func:`batched_als_sweeps` is the twin of ``ttnx.parallel.batch.
 batched_als_sweeps`` (a ``vmap`` of ``als_sweeps`` there). It runs the batch
@@ -8,15 +8,25 @@ als_sweeps`, so every solver option keeps its exact semantics; the batch
 written out is :func:`ttnx_torch.solvers.als_scan_batched.als_sweeps_b`
 (kernels B5/B6) and, for the whole pass in one launch,
 :func:`ttnx_torch.kernels.als_sweep_fused.als_fwd_bwd_fused_batched` (B7).
+
+:func:`batched_dmrg_eig_sweeps`, :func:`batched_tdvp1_steps` and
+:func:`batched_tdvp2_steps` are the twins of the JAX package's ``vmap``s
+of the DMRG and TDVP sweeps, likewise loops over problems: the operator
+stack is shared (5-D) or one per problem (6-D), masks are per problem, and
+a step ``h`` is a scalar or one value per problem.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ttnx_torch.solvers.als_scan import als_sweeps
+from ttnx_torch.solvers.dmrg_scan import dmrg_eig_sweep
+from ttnx_torch.solvers.tdvp_scan import tdvp1_step, tdvp2_step
 
-__all__ = ["batched_als_sweeps"]
+__all__ = ["batched_als_sweeps", "batched_dmrg_eig_sweeps",
+           "batched_tdvp1_steps", "batched_tdvp2_steps"]
 
 
 def batched_als_sweeps(A_stack, b_batch, x_batch, masks, sweep_count: int = 2,
@@ -26,3 +36,84 @@ def batched_als_sweeps(A_stack, b_batch, x_batch, masks, sweep_count: int = 2,
     return torch.stack([
         als_sweeps(A_stack, b, x, masks, sweep_count, solver=solver)
         for b, x in zip(b_batch, x_batch)])
+
+
+def _op_axis(A):
+    """0 when the operator stack carries a leading batch axis (one operator
+    per problem, ``(B, d, RA, n, n, RA)``), else None (one shared
+    operator)."""
+    if A.ndim == 6:
+        return 0
+    if A.ndim == 5:
+        return None
+    raise ValueError(f"operator stack must be 5-D or 6-D, got {A.ndim}-D")
+
+
+def _per_problem(A, B):
+    """The operator stack of each of the B problems."""
+    return list(A) if _op_axis(A) == 0 else [A] * B
+
+
+def _steps(h, B):
+    """The step of each of the B problems: ``h`` itself when it is a
+    scalar (no cast: a Python float stays exact in float64 runs)."""
+    nd = h.ndim if torch.is_tensor(h) else np.ndim(h)
+    return list(h) if nd == 1 else [h] * B
+
+
+def batched_dmrg_eig_sweeps(A, x_batch, mask_batch, tol, degen_tol,
+                            n_sweeps: int = 1, lanczos_iters: int = 24,
+                            split: str = "svd"):
+    """``n_sweeps`` DMRG eigensweeps of each problem (a parameter sweep:
+    one Hamiltonian per problem, or one shared). Returns ``(x_batch,
+    mask_batch, energies (B, n_sweeps * 2 (d-1)))``."""
+    xs, ms, Es = [], [], []
+    for A_stack, x, m in zip(_per_problem(A, len(x_batch)), x_batch,
+                             mask_batch):
+        lams = []
+        for _ in range(n_sweeps):
+            x, m, E = dmrg_eig_sweep(A_stack, x, m, tol, degen_tol,
+                                     lanczos_iters=lanczos_iters,
+                                     split=split)
+            lams.append(E)
+        xs.append(x)
+        ms.append(m)
+        Es.append(torch.cat(lams))
+    return torch.stack(xs), torch.stack(ms), torch.stack(Es)
+
+
+def batched_tdvp1_steps(A, x_batch, mask_batch, h, n_steps: int = 1,
+                        expm: str = "lanczos", krylov_dim: int = 20,
+                        imag_real: bool = False):
+    """``n_steps`` 1-site TDVP steps of each problem; ``h`` is a scalar
+    step or one per problem. Returns the evolved ``x_batch``."""
+    B = len(x_batch)
+    out = []
+    for A_stack, x, m, hh in zip(_per_problem(A, B), x_batch, mask_batch,
+                                 _steps(h, B)):
+        for _ in range(n_steps):
+            x = tdvp1_step(A_stack, x, m, hh, expm=expm,
+                           krylov_dim=krylov_dim, imag_real=imag_real)
+        out.append(x)
+    return torch.stack(out)
+
+
+def batched_tdvp2_steps(A, x_batch, mask_batch, h, truncerr, max_bond,
+                        n_steps: int = 1, expm: str = "lanczos",
+                        krylov_dim: int = 20, imag_real: bool = False,
+                        split: str = "svd"):
+    """``n_steps`` rank-adaptive 2-site TDVP steps of each problem; masks
+    adapt per problem. Returns ``(x_batch, mask_batch)``."""
+    B = len(x_batch)
+    te = torch.as_tensor(truncerr, dtype=x_batch.real.dtype,
+                         device=x_batch.device)
+    xs, ms = [], []
+    for A_stack, x, m, hh in zip(_per_problem(A, B), x_batch, mask_batch,
+                                 _steps(h, B)):
+        for _ in range(n_steps):
+            x, m = tdvp2_step(A_stack, x, m, hh, te, max_bond, expm=expm,
+                              krylov_dim=krylov_dim, imag_real=imag_real,
+                              split=split)
+        xs.append(x)
+        ms.append(m)
+    return torch.stack(xs), torch.stack(ms)

@@ -1,4 +1,5 @@
-"""Analytic FLOP accounting for the CN step.
+"""Analytic FLOP accounting for the CN step, the batched ALS and the DMRG
+eigensweep.
 
 Counts the executed (padded-shape) contraction FLOPs, the numerator for
 achieved-rate reporting. Each einsum is costed along numpy's optimal
@@ -12,7 +13,7 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["einsum_flops", "als_sweeps_flops", "cn_step_flops",
-           "gram_chain_flops", "round_gram_flops"]
+           "gram_chain_flops", "round_gram_flops", "dmrg_eig_sweep_flops"]
 
 
 def einsum_flops(expr: str, *shapes) -> float:
@@ -79,3 +80,18 @@ def cn_step_flops(d: int, R: int, RA_lhs: int, RA_rhs: int, n: int = 2,
                           (d, RA_rhs, n, n, RA_rhs), (d, R, n, R))
     return (matvec + round_gram_flops(d, RB, R, n)
             + als_sweeps_flops(d, R, RA_lhs, R, n, sweep_count, cg_iters))
+
+
+def dmrg_eig_sweep_flops(d: int, R: int, RA: int, n: int = 2,
+                         lanczos_iters: int = 8) -> float:
+    """Contraction FLOPs of one ``dmrg_eig_sweep`` with matrix-free
+    Lanczos: the two operator env chains (B8), ``lanczos_iters`` two-site
+    applies at each of the ``2 (d-1)`` sites and an env update after each.
+    Splits (SVD/eigh), the Krylov reorthogonalization and the dense-K
+    assembly of ``'lanczos_fused'`` are excluded: a utilization view."""
+    env = einsum_flops("aip,Wijw,bjq,pwq->aWb",
+                       (R, n, R), (RA, n, n, RA), (R, n, R), (R, RA, R))
+    apply2 = einsum_flops("aWb,WiIw,wjJv,cvd,bIJd->aijc",
+                          (R, RA, R), (RA, n, n, RA), (RA, n, n, RA),
+                          (R, RA, R), (R, n, n, R))
+    return 2 * d * env + 2 * (d - 1) * (lanczos_iters * apply2 + env)
