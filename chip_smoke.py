@@ -52,10 +52,32 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    of the d = 10 heat generator on the sine, f32, against the analytic
    decay (rel <= 1e-3), ms/step; batched_dmrg_eig_sweeps over 4 XXZ
    chains with per-problem fields equal to the 4 single runs exactly.
+3d. Kernels B10-B13 against their plain versions: B10 (BiCGStab, 32
+   iterations) on the K the convection step assembles at a middle site
+   (M = 512; see CONV_SITE) and on a seeded diagonally dominant K at M =
+   999, f32
+   (<= 1e-4) and f64 (<= 1e-10); B11 and B12 at the bench shapes, compared
+   at 8 iterations (at the bench's 2048 the iterate has decayed to zero),
+   bf16 (one bf16 ulp, 2^-8, for each rounding of the chain: 16 for B11,
+   8 for B12) and f32 (<= 1e-4); B13 at (4096, 128, 64) @ (4096, 64, 128)
+   in bf16 and f32 (<= 1e-5), with torch.bmm's time beside it.
+8. Convection-diffusion CN path: d=12, rmax=16, f32, h=1e-6, c=1e3,
+   solver='bicgstab_fused' (32 cold BiCGStab iterations a local solve),
+   8 chained steps from the three-mode state (median of 3 chains after a
+   warm-up), through the kernels and the plain versions: the 8-step state
+   against the sparse-LU oracle (rel <= 1e-3), the last step's residual
+   with the exact operators (<= 1e-2), kernels against plain (rel <=
+   1e-4), launches per step (B10 22, B1 1, B2 1 right + 1 left, B3/B4 0).
+9. Contraction path at the bench's shapes, bf16: the two-site merge of
+   the chain's cores (B13), merge_resplit_chain at 2048 iterations (B11)
+   and matmul_chain at 1024 (B12), each once for its launch count, then
+   timed (CUDA events, median of 3 after a warm-up) through the kernel
+   and the plain loop; finite outputs, GFLOP/s and the share of the bf16
+   bound.
 
-The last two lines are a JSON summary of the kernels and the device line
-``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
-and prints no result.
+The last two lines are a JSON summary of the kernels (13 rows: errors,
+times, bound, library time) and the device line ``{"ok": true, "device":
+{...}}``. Without a CUDA device it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -87,6 +109,21 @@ DMRG_ITERS, DMRG_SWEEPS = 8, 8
 LANCZOS_M = 1024
 # TDVP (bench_tdvp_step / bench_tdvp2_step, bench.py:376-503)
 TDVP_D, TDVP_RMAX, TDVP_H = 10, 8, 1e-5
+# convection-diffusion CN (bench_cn_rank's settings, a non-symmetric A).
+# B10 is held on local solve CONV_SITE of the first step (the backward
+# sweep at site 7, cond(K) ~35): the forward sweep's K at site 5 is
+# singular to rounding (its right environment comes from the rank-6 guess;
+# smallest singular value ~1e-13), and there BiCGStab's components in the
+# null directions are set by rounding in any two implementations.
+CONV_RMAX, CONV_C, BICG_ITERS, CONV_SITE = 16, 1e3, 32, 15
+# contraction chain (bench_pallas_chain) and its ceiling (bench.py:176-234)
+CHAIN_ITERS, CEIL_ITERS, SHORT_ITERS = 2048, 1024, 8
+BF16_ULP = 2.0 ** -8
+# published dense peaks of one H100 SXM (NVIDIA's data sheet): FLOP/s by
+# operand type of the summarized rows (bf16 on the tensor cores, f32 on
+# the CUDA cores) and device-memory bytes/s
+PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}
+HBM = 3.35e12
 
 # wrapper name -> (label, patched module, source, TPU kernel it replaces)
 KERNELS = {
@@ -121,6 +158,18 @@ KERNELS = {
     "lanczos_fused": (
         "B9", "ttnx_torch.solvers.dmrg_scan",
         "ttnx_torch/csrc/lanczos.cu", "ttnx/kernels/lanczos.py:102"),
+    "bicgstab_solve_fused": (
+        "B10", "ttnx_torch.solvers.als_scan",
+        "ttnx_torch/csrc/local_cg.cu", "ttnx/kernels/local_cg.py:143"),
+    "merge_resplit_chain": (
+        "B11", "ttnx_torch.kernels.contraction",
+        "ttnx_torch/csrc/contraction.cu", "ttnx/kernels/contraction.py:162"),
+    "matmul_chain": (
+        "B12", "ttnx_torch.kernels.contraction",
+        "ttnx_torch/csrc/contraction.cu", "ttnx/kernels/contraction.py:125"),
+    "two_site_merge": (
+        "B13", "ttnx_torch.kernels.contraction",
+        "ttnx_torch/csrc/contraction.cu", "ttnx/kernels/contraction.py:45"),
 }
 CN_KERNELS = ("gram_chain_fused", "right_env_chain_fused",
               "left_env_chain_fused", "cg_solve_fused", "cg_matfree_fused")
@@ -131,8 +180,8 @@ def log(msg: str) -> None:
 
 
 def wrappers():
-    from ttnx_torch.kernels import (als_sweep_fused, env_chain, gram,
-                                    lanczos, local_cg, local_cg_mf)
+    from ttnx_torch.kernels import (als_sweep_fused, contraction, env_chain,
+                                    gram, lanczos, local_cg, local_cg_mf)
 
     return {
         "gram_chain_fused": (gram.gram_chain_fused, gram.gram_chain_plain),
@@ -153,6 +202,14 @@ def wrappers():
         "env_chain_A_fused": (env_chain.env_chain_A_fused,
                               env_chain.env_chain_A_plain),
         "lanczos_fused": (lanczos.lanczos_fused, lanczos.lanczos_plain),
+        "bicgstab_solve_fused": (local_cg.bicgstab_solve_fused,
+                                 local_cg.bicgstab_solve_plain),
+        "merge_resplit_chain": (contraction.merge_resplit_chain,
+                                contraction.merge_resplit_chain_plain),
+        "matmul_chain": (contraction.matmul_chain,
+                         contraction.matmul_chain_plain),
+        "two_site_merge": (contraction.two_site_merge,
+                           contraction.two_site_merge_plain),
     }
 
 
@@ -303,12 +360,98 @@ def max_err(got, ref):
     return abs_err, abs_err / scale
 
 
+def nbytes(x):
+    if torch.is_tensor(x):
+        return x.numel() * x.element_size()
+    if isinstance(x, (tuple, list)):
+        return sum(nbytes(v) for v in x)
+    return 0
+
+
+def kernel_flops(name, args, kw):
+    """The operations of one wrapper call, from its shapes: the
+    contractions and matvecs it runs (vector updates and the gauge of B7
+    excluded, so the bound below is a floor)."""
+    from ttnx_torch.utils.flops import (als_sweeps_flops, einsum_flops,
+                                        gram_chain_flops)
+
+    def env_A(R, RA, n):
+        return einsum_flops("aip,Wijw,bjq,pwq->aWb", (R, n, R),
+                            (RA, n, n, RA), (R, n, R), (R, RA, R))
+
+    def env_b(R, Rb, n):
+        return einsum_flops("aip,uiv,pv->au", (R, n, R), (Rb, n, Rb),
+                            (R, Rb))
+
+    if name == "gram_chain_fused":
+        d, R, n, _ = args[0].shape
+        return gram_chain_flops(d, R, n)
+    if name in ("right_env_chain_fused", "left_env_chain_fused",
+                "env_chain_fused_batched"):
+        x, A, b = args[:3]
+        B = x.shape[0] if x.dim() == 5 else 1
+        d, R, n = x.shape[-4:-1]
+        return B * d * (env_A(R, A.shape[1], n) + env_b(R, b.shape[-1], n))
+    if name == "env_chain_A_fused":
+        d, R, n = args[0].shape[:3]
+        return d * env_A(R, args[1].shape[1], n)
+    if name in ("cg_solve_fused", "bicgstab_solve_fused", "lanczos_fused"):
+        M = args[0].shape[0]
+        if name == "cg_solve_fused":
+            it = kw.get("iters", 48) + (kw.get("x0") is not None)
+            return it * 2.0 * M * M
+        if name == "bicgstab_solve_fused":
+            return kw.get("iters", 32) * 4.0 * M * M
+        it = kw.get("iters", 16)  # + two reorthogonalization passes
+        return it * 2.0 * M * M + 8.0 * M * it * (it - 1) / 2
+    if name in ("cg_matfree_fused", "cg_matfree_fused_batched"):
+        L, Ac = args[:2]
+        B = L.shape[0] if L.dim() == 4 else 1
+        R, RA, n = L.shape[-3], L.shape[-2], Ac.shape[1]
+        apply = einsum_flops("aWb,WiJw,cwd,bJd->aic", (R, RA, R),
+                             (RA, n, n, RA), (R, RA, R), (R, n, R))
+        return B * (kw.get("iters", 32) + (kw.get("x0") is not None)) * apply
+    if name == "als_fwd_bwd_fused_batched":
+        A, _, x, _ = args
+        B, d, R, n, _ = x.shape
+        return B * als_sweeps_flops(d, R, A.shape[1], R, n, 2,
+                                    kw.get("cg_iters", 24) + 1)
+    if name == "two_site_merge":
+        (B, m, k), n = args[0].shape, args[1].shape[2]
+        return 2.0 * B * m * k * n
+    if name == "matmul_chain":
+        B, m, k = args[0].shape
+        return 2.0 * B * m * k * k * kw.get("iters", 8)
+    if name == "merge_resplit_chain":
+        (B, m, r), n = args[0].shape, args[1].shape[2]
+        return 2 * 2.0 * B * m * r * n * kw.get("iters", 8)
+    raise KeyError(name)
+
+
+def work(name, args, kwargs, out):
+    """(FLOPs, bytes, operand type) of one call: each input read once and
+    each output written once."""
+    tensors = [a for a in args if torch.is_tensor(a)]
+    moved = nbytes(list(args) + list(kwargs.values())) + nbytes(out)
+    return kernel_flops(name, args, kwargs), moved, tensors[0].dtype
+
+
+def bound(row):
+    """(least time in ms, what bounds it) of a row's call on the card."""
+    flops, moved, dtype = row["work"]
+    t_ops, t_bytes = flops / PEAK[dtype], moved / HBM
+    return max(t_ops, t_bytes) * 1e3, (
+        "operations" if t_ops >= t_bytes else "bytes")
+
+
 def hold(name, rmax, dtype, args, kwargs, reps=10, repeats=5, tag="",
-         compare=max_err):
+         compare=max_err, tol=None):
     """One kernel against its plain version on the same inputs: raises
-    above the tolerance, returns the row of errors and CUDA-event times.
+    above the tolerance (``TOL[dtype]`` unless given), returns the row of
+    errors, CUDA-event times and the call's work (FLOPs, bytes).
     ``compare(got, ref)`` gives (max abs err, max rel err)."""
     kernel, plain = wrappers()[name]
+    tol = TOL[dtype] if tol is None else tol
     got = kernel(*args, **kwargs)
     ref = plain(*args, **kwargs)
     torch.cuda.synchronize()
@@ -317,17 +460,18 @@ def hold(name, rmax, dtype, args, kwargs, reps=10, repeats=5, tag="",
     plain_ms = cuda_ms(lambda: plain(*args, **kwargs), reps, repeats)
     big = max((a for a in args if torch.is_tensor(a)), key=torch.numel)
     shape = "x".join(str(s) for s in big.shape)
-    ok = rel_err <= TOL[dtype]
+    ok = rel_err <= tol
     log(f"kernel {KERNELS[name][0]} {name:25s} r{rmax:<3d} "
         f"{str(dtype)[6:]:8s} in {shape:16s}{tag} max_rel_err "
-        f"{rel_err:.3e} max_abs_err {abs_err:.3e} | kernel {ms:.4f} ms  "
-        f"plain {plain_ms:.4f} ms  {'ok' if ok else 'FAIL'}")
+        f"{rel_err:.3e} (<= {tol:.2e}) max_abs_err {abs_err:.3e} | kernel "
+        f"{ms:.4f} ms  plain {plain_ms:.4f} ms  {'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError(
             f"{name} r{rmax} {dtype}{tag}: kernel disagrees with its plain "
-            f"version, rel err {rel_err:.3e} > {TOL[dtype]:.0e}")
+            f"version, rel err {rel_err:.3e} > {tol:.2e}")
     return dict(name=name, rmax=rmax, dtype=dtype, abs_err=abs_err,
-                rel_err=rel_err, ms=ms, plain_ms=plain_ms, tag=tag)
+                rel_err=rel_err, ms=ms, plain_ms=plain_ms, tag=tag,
+                work=work(name, args, kwargs, got))
 
 
 def phase_kernels(device):
@@ -789,6 +933,253 @@ def phase_tdvp_path(device):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# Convection-diffusion CN and the contraction chain (slice 4)
+# ---------------------------------------------------------------------------
+
+
+def conv_setup(device, dtype=torch.float32):
+    """The convection CN step on the three-mode state, and the dense f64
+    start."""
+    from ttnx_torch.entry import convection_cn_step, three_mode_state
+
+    hg = 1.0 / (2 ** D + 1)
+    step_fn, pack, unpack = convection_cn_step(
+        device, rmax=CONV_RMAX, d=D, h=H_STEP, c=CONV_C, dtype=dtype,
+        bicg_iters=BICG_ITERS)
+    u0 = three_mode_state(D, hg, device)
+    return step_fn, pack(u0), unpack, dense(lambda u: u, u0)
+
+
+def as_float(compare):
+    return lambda got, ref: compare(got.float(), ref.float())
+
+
+def singular_site_report(args, kwargs):
+    """B10 on the forward sweep's K at MIDDLE_SITE, which is singular to
+    rounding: its conditioning, and kernel against plain by residual and
+    by solution (a report, not a gate)."""
+    from ttnx_torch.kernels.local_cg import (bicgstab_solve_fused,
+                                             bicgstab_solve_plain)
+
+    K, rhs = args
+    Kd, bd = K.double().cpu().numpy(), rhs.double().cpu().numpy()
+    sv = np.linalg.svd(Kd, compute_uv=False)
+    got = bicgstab_solve_fused(K, rhs, **kwargs).double().cpu().numpy()
+    ref = bicgstab_solve_plain(K, rhs, **kwargs).double().cpu().numpy()
+
+    def res(x):
+        return np.linalg.norm(Kd @ x - bd) / np.linalg.norm(bd)
+
+    log(f"B10 report {str(K.dtype)[6:]} local solve {MIDDLE_SITE} (forward "
+        f"site {MIDDLE_SITE}): singular values {sv[-1]:.3e} .. {sv[0]:.3e} "
+        f"(cond {sv[0] / sv[-1]:.3e}) | residual kernel {res(got):.3e} "
+        f"plain {res(ref):.3e} | kernel vs plain max rel "
+        f"{np.abs(got - ref).max() / np.abs(ref).max():.3e}")
+
+
+def phase_new_kernels(device):
+    """3d: B10-B13 against their plain versions."""
+    from ttnx_torch.entry import contraction_problem, matmul_ceiling_problem
+
+    rows = []
+    for dtype in (torch.float32, torch.float64):
+        step_fn, us, _, _ = conv_setup(device, dtype)
+        seen = record_calls(lambda: step_fn(us))
+        singular_site_report(*seen["bicgstab_solve_fused"][MIDDLE_SITE])
+        args, kwargs = seen["bicgstab_solve_fused"][CONV_SITE]
+        rows.append(hold("bicgstab_solve_fused", CONV_RMAX, dtype, args,
+                         kwargs, tag=" convection K"))
+        M = 999
+        rng = np.random.default_rng(M)
+        K = rng.standard_normal((M, M)) / np.sqrt(M) + 2.0 * np.eye(M)
+        K, rhs = (torch.as_tensor(a, dtype=dtype, device=device)
+                  for a in (K, rng.standard_normal(M)))
+        rows.append(hold("bicgstab_solve_fused", CONV_RMAX, dtype, (K, rhs),
+                         dict(iters=BICG_ITERS), tag=" M=999 diag-dominant"))
+    short = dict(iters=SHORT_ITERS)
+    for dtype in (torch.bfloat16, torch.float32):
+        p = contraction_problem(device, dtype=dtype)
+        q = matmul_ceiling_problem(device, dtype=dtype)
+        bf = dtype == torch.bfloat16
+        reps, repeats = (10, 5) if bf else (3, 3)
+        rows.append(hold(
+            "merge_resplit_chain", 64, dtype, (p["a"], p["b"], p["w"]),
+            short, reps, repeats, f" iters {SHORT_ITERS}", as_float(max_err),
+            2 * SHORT_ITERS * BF16_ULP if bf else 1e-4))
+        rows.append(hold(
+            "matmul_chain", 128, dtype, (q["x"], q["w"]), short, reps,
+            repeats, f" iters {SHORT_ITERS}", as_float(max_err),
+            SHORT_ITERS * BF16_ULP if bf else 1e-4))
+        rows.append(hold("two_site_merge", 64, dtype, (p["a"], p["b"]), {},
+                         reps, repeats, " merge", as_float(max_err), 1e-5))
+    return rows
+
+
+def phase_convection_path(device):
+    """8: the convection-diffusion CN step; returns the launch counts."""
+    from ttnx_torch.core.algebra import add_op
+    from ttnx_torch.core.tt import id_tto
+    from ttnx_torch.entry import (convection_cn_operators, convection_operator,
+                                  dense_cn_reference)
+    from ttnx_torch.kernels.dispatch import launch_counts, reset_launch_counts
+    from ttnx_torch.utils.flops import cn_step_bicgstab_flops
+
+    hg = 1.0 / (2 ** D + 1)
+    step_fn, us, unpack, u0 = conv_setup(device)
+    reset_launch_counts()
+    one = step_fn(us)
+    torch.cuda.synchronize()
+    per_step = launch_counts()
+    want = dict.fromkeys(per_step, 0)
+    want.update({"gram_chain_fused": 1, "right_env_chain_fused": 1,
+                 "left_env_chain_fused": 1,
+                 "bicgstab_solve_fused": 2 * (D - 1)})
+    if per_step != want:
+        raise RuntimeError(f"convection: launches per step {per_step}, "
+                           f"expected {want}")
+    if one.shape != us.shape or not bool(torch.isfinite(one).all()):
+        raise RuntimeError("convection: step output is not a finite stack")
+    ms, v7, v8 = timed_chain(step_fn, us)
+    counts = launch_counts()
+    d7, d8 = dense(unpack, v7), dense(unpack, v8)
+    exact = dense_cn_reference(D, hg, H_STEP, CONV_C, u0, N_STEPS)
+    rel = float(np.linalg.norm(d8 - exact) / np.linalg.norm(exact))
+    moved = float(np.linalg.norm(exact - u0) / np.linalg.norm(u0))
+    lhs, rhs = convection_cn_operators(D, hg, H_STEP, CONV_C)
+    res = float(np.linalg.norm(lhs @ d8 - rhs @ d7)
+                / np.linalg.norm(rhs @ d7))
+    with plain_versions():
+        plain_ms, _, p8 = timed_chain(step_fn, us)
+    agree = float(np.linalg.norm(d8 - dense(unpack, p8))
+                  / np.linalg.norm(d8))
+    RA = max(add_op(id_tto(D), convection_operator(D, CONV_C)).ranks)
+    gflops = cn_step_bicgstab_flops(D, CONV_RMAX, RA, RA,
+                                    bicg_iters=BICG_ITERS) / (ms * 1e-3) / 1e9
+    log(f"convection cn_step d={D} r{CONV_RMAX} c={CONV_C:g} f32 "
+        f"bicgstab_fused: {ms:.3f} ms/step ({gflops:.2f} GFLOP/s) | plain "
+        f"{plain_ms:.3f} ms/step | rel to the sparse-LU oracle {rel:.3e} "
+        f"(<= 1e-3; the state moved {moved:.3e}) residual {res:.3e} (<= "
+        f"1e-2) | kernel vs plain 8-step rel {agree:.3e} (<= 1e-4) | "
+        f"launches/step { {k: v for k, v in per_step.items() if v} }")
+    if not (np.isfinite(rel) and rel <= 1e-3 and res <= 1e-2
+            and agree <= 1e-4):
+        raise RuntimeError(f"convection failed its gates: rel={rel:.3e} "
+                           f"residual={res:.3e} agree={agree:.3e}")
+    return counts
+
+
+def library_bmm_ms(a, b):
+    """One PyTorch call computing B13's function (bf16 in, f32 out), or
+    None where the installed torch has no such call."""
+    try:
+        torch.bmm(a, b, out_dtype=torch.float32)
+    except (TypeError, RuntimeError) as err:
+        log(f"library: torch.bmm(..., out_dtype=float32) unavailable: "
+            f"{str(err).splitlines()[0]}")
+        return None
+    return cuda_ms(lambda: torch.bmm(a, b, out_dtype=torch.float32))
+
+
+def phase_contraction_path(device):
+    """9: the contraction path at the bench's shapes in bf16; returns (the
+    launch counts, one row per kernel)."""
+    from ttnx_torch.entry import contraction_problem, matmul_ceiling_problem
+    from ttnx_torch.kernels import contraction as ct
+    from ttnx_torch.kernels.dispatch import launch_counts, reset_launch_counts
+    from ttnx_torch.utils.flops import (contraction_chain_flops,
+                                        matmul_chain_flops)
+
+    p = contraction_problem(device)
+    q = matmul_ceiling_problem(device)
+    B, r2, r = p["a"].shape
+    n = r2 // r
+    bw = torch.bmm(p["b"].float(), p["w"].float()).cpu().numpy()
+    rho = np.abs(np.linalg.eigvals(bw)).max(axis=1)
+    start = float(p["a"].float().norm())
+    decay = {it: float(ct.merge_resplit_chain(p["a"], p["b"], p["w"],
+                                              iters=it).float().norm())
+             / start for it in (8, 64, 256, 2048)}
+    log(f"contraction chain: spectral radius of b w median "
+        f"{np.median(rho):.3f} max {rho.max():.3f} (bf16 factors) | "
+        f"|acc| / |a| after {list(decay)} iterations (B11, bf16): "
+        f"{[f'{v:.3e}' for v in decay.values()]}")
+    runs = {
+        "two_site_merge": (lambda: ct.two_site_merge(p["a"], p["b"]),
+                           (p["a"], p["b"]), {}, 2.0 * B * r2 * r * r2),
+        "merge_resplit_chain": (
+            lambda: ct.merge_resplit_chain(p["a"], p["b"], p["w"],
+                                           iters=CHAIN_ITERS),
+            (p["a"], p["b"], p["w"]), dict(iters=CHAIN_ITERS),
+            contraction_chain_flops(B, r, n, CHAIN_ITERS)),
+        "matmul_chain": (
+            lambda: ct.matmul_chain(q["x"], q["w"], iters=CEIL_ITERS),
+            (q["x"], q["w"]), dict(iters=CEIL_ITERS),
+            matmul_chain_flops(*q["x"].shape, CEIL_ITERS)),
+    }
+    reset_launch_counts()
+    outs = {name: run() for name, (run, *_) in runs.items()}
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want.update(dict.fromkeys(runs, 1))
+    if counts != want:
+        raise RuntimeError(f"contraction: launches {counts}, expected {want}")
+    rows = []
+    for name, (run, args, kw, flops) in runs.items():
+        out = outs[name]
+        if not bool(torch.isfinite(out).all()):
+            raise RuntimeError(f"{name}: output is not finite")
+        reps, repeats = (10, 5) if name == "two_site_merge" else (1, 3)
+        ms = cuda_ms(run, reps, repeats)
+        with plain_versions():
+            plain_ms = cuda_ms(run, reps, repeats)
+        row = dict(name=name, rmax=r, dtype=p["a"].dtype, ms=ms,
+                   plain_ms=plain_ms, tag=" path", work=work(name, args, kw,
+                                                             out),
+                   library_ms=(library_bmm_ms(*args)
+                               if name == "two_site_merge" else None))
+        bound_ms, by = bound(row)
+        log(f"contraction {KERNELS[name][0]} {name} bf16 "
+            f"{tuple(args[0].shape)} {kw}: {ms:.3f} ms "
+            f"({flops / ms / 1e6:.1f} GFLOP/s, "
+            f"{bound_ms / ms:.3f} of the {by} bound {bound_ms:.4f} ms) | "
+            f"plain {plain_ms:.3f} ms | library {row['library_ms']} ms | "
+            f"output {tuple(out.shape)} {str(out.dtype)[6:]}, max |x| "
+            f"{float(out.float().abs().max()):.3e}, zero share "
+            f"{float((out == 0).float().mean()):.3f}")
+        rows.append(row)
+    return counts, rows
+
+
+def summarize(rows, path_rows, counts):
+    """One JSON row per kernel at the type and rank where its path runs
+    it: f32 at rank 64 (B3, B9, B10 at 16; B9 the sweep's own K at iters
+    8, B10 the convection step's K), B11-B13 the bf16 contraction path
+    with the error of the bf16 comparison at 8 iterations."""
+    pick = {"cg_solve_fused": 16, "lanczos_fused": 16,
+            "bicgstab_solve_fused": CONV_RMAX}
+    summary = []
+    for name, (label, _, source, replaces) in KERNELS.items():
+        held = [r for r in rows if r["name"] == name]
+        r = next((r for r in path_rows if r["name"] == name), None)
+        if r is None:
+            r = next(r for r in held if r["dtype"] == torch.float32
+                     and r["rmax"] == pick.get(name, 64))
+        else:
+            r["abs_err"] = next(h["abs_err"] for h in held
+                                if h["dtype"] == torch.bfloat16)
+        bound_ms, by = bound(r)
+        summary.append({"name": f"{label} {name}", "route": "cuda",
+                        "source": source, "replaces": replaces,
+                        "launches": counts[name],
+                        "max_abs_err": r["abs_err"], "ms": r["ms"],
+                        "plain_ms": r["plain_ms"], "bound_ms": bound_ms,
+                        "bound_by": by,
+                        "library_ms": r.get("library_ms")})
+    return summary
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -803,31 +1194,21 @@ def main() -> int:
     phase_device()
     phase_build()
     rows = (phase_kernels(device) + phase_batched_kernels(device)
-            + phase_dmrg_kernels(device))
+            + phase_dmrg_kernels(device) + phase_new_kernels(device))
     counts = phase_main_path(device)
     later = list(phase_batched_path(device).values())
-    later += [phase_dmrg_path(device), phase_tdvp_path(device)]
+    later += [phase_dmrg_path(device), phase_tdvp_path(device),
+              phase_convection_path(device)]
+    contraction_counts, path_rows = phase_contraction_path(device)
+    later.append(contraction_counts)
     for path_counts in later:
         for name, n in path_counts.items():
             if name not in CN_KERNELS:
-                counts[name] += n
-    missing = [k for k in KERNELS if counts[k] == 0]
+                counts[name] = counts.get(name, 0) + n
+    missing = [k for k in KERNELS if counts.get(k, 0) == 0]
     if missing:
         raise RuntimeError(f"the main paths launched no {missing}")
-    # one summary row per kernel, f32, at the rank where the path runs it
-    # (B9: the sweep's own K at iters 8, the first B9 row)
-    pick = {"cg_solve_fused": 16, "lanczos_fused": 16}
-    summary = []
-    for name, (label, _, source, replaces) in KERNELS.items():
-        r = next(r for r in rows if r["name"] == name
-                 and r["dtype"] == torch.float32
-                 and r["rmax"] == pick.get(name, 64))
-        summary.append({"name": f"{label} {name}", "route": "cuda",
-                        "source": source, "replaces": replaces,
-                        "launches": counts[name],
-                        "max_abs_err": r["abs_err"], "ms": r["ms"],
-                        "plain_ms": r["plain_ms"]})
-    print(json.dumps({"kernels": summary}))
+    print(json.dumps({"kernels": summarize(rows, path_rows, counts)}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -84,7 +84,11 @@ def test_cn_step_matfree_cg_path_matches_ttnx():
      None, 1e-10),
     (dict(round_method="gram_chain", solver="lu", round_rhs=False),
      None, 1e-10),
-], ids=["svd-lu", "gram-cg-polar", "gramchain-bicgstab", "unrounded-lu"])
+    # dense-K BiCGStab (kernel B10's plain version) against ttnx's kernel
+    (dict(round_method="gram_chain", solver="bicgstab_fused", cg_iters=24),
+     None, 1e-10),
+], ids=["svd-lu", "gram-cg-polar", "gramchain-bicgstab", "unrounded-lu",
+        "gramchain-bicgstab_fused"])
 def test_cn_step_options_match_ttnx(kw, j_kw, tol):
     got, ref = _both(6, 4, 1, j_kw=j_kw, sweep_count=2, **kw)
     assert _rel(got, ref) <= tol
@@ -173,14 +177,6 @@ def test_als_linsolve_scan_matches_ttnx():
     got = tx.als_linsolve_scan(A_t, tx.qtt_sin(d), ttvector_from_numpy(x0),
                                sweep_count=4)
     assert _rel(t_dense(got).numpy(), np.asarray(j_dense(ref))) <= TOL
-
-
-def test_bicgstab_fused_raises_until_b10():
-    A, hg = _laplacian(tx, 4)
-    step, pack, _ = t_rs.make_cn_step(A, 1e-6, 2, (2,) * 4, (1, 2, 2, 2, 1),
-                                      solver="bicgstab_fused")
-    with pytest.raises(NotImplementedError, match="B10"):
-        step(pack(tx.qtt_sin(4, a=hg, b=1 - hg)))
 
 
 def test_entry_runs_on_cpu():

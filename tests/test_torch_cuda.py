@@ -1,4 +1,4 @@
-"""The Hopper kernels B1-B9 against their plain versions on a CUDA card.
+"""The Hopper kernels B1-B13 against their plain versions on a CUDA card.
 
 Every test here needs a card and skips without one. This file imports no
 jax, so on a machine with a card and no jax it runs without the suite's
@@ -9,9 +9,11 @@ conftest:
 Shapes are deliberately ragged (not multiples of the 64-wide GEMM tiles)
 so the edge masking of every kernel is exercised, and the batched kernels
 get distinct problems per batch element. Tolerances: 1e-10 in float64;
-1e-5 in float32 for B1/B2/B6/B8 and 1e-4 for B3/B4/B5/B7/B9 (CG and
-Lanczos amplify the rounding of f32 products); relative to the largest
-entry.
+1e-5 in float32 for B1/B2/B6/B8/B13 and 1e-4 for B3/B4/B5/B7/B9/B10/B11/
+B12 (CG, BiCGStab and Lanczos amplify the rounding of f32 products, and
+the chains repeat it); relative to the largest entry. bf16 chains: one
+bf16 ulp (2^-8) for each rounding of the chain, where f32 sums taken in
+another order cross a rounding boundary.
 """
 
 import numpy as np
@@ -19,6 +21,11 @@ import pytest
 import torch
 
 from ttnx_torch.entry import batched_als_problem, flat_spectrum_stack
+from ttnx_torch.kernels.contraction import (matmul_chain, matmul_chain_plain,
+                                            merge_resplit_chain,
+                                            merge_resplit_chain_plain,
+                                            two_site_merge,
+                                            two_site_merge_plain)
 from ttnx_torch.kernels.als_sweep_fused import (als_fwd_bwd_fused_batched,
                                                 als_fwd_bwd_plain)
 from ttnx_torch.kernels.env_chain import (env_chain_A_fused,
@@ -31,7 +38,9 @@ from ttnx_torch.kernels.env_chain import (env_chain_A_fused,
                                           right_env_chain_plain)
 from ttnx_torch.kernels.gram import gram_chain_fused, gram_chain_plain
 from ttnx_torch.kernels.lanczos import lanczos_fused, lanczos_plain
-from ttnx_torch.kernels.local_cg import cg_solve_fused, cg_solve_plain
+from ttnx_torch.kernels.local_cg import (bicgstab_solve_fused,
+                                         bicgstab_solve_plain,
+                                         cg_solve_fused, cg_solve_plain)
 from ttnx_torch.kernels.local_cg_mf import (cg_matfree_batched_plain,
                                             cg_matfree_fused,
                                             cg_matfree_fused_batched,
@@ -320,3 +329,77 @@ def test_lanczos_kernel_breakdown(cuda, dtype):
     assert bool((Q[dead:] == 0).all()) and bool((alphas[dead:] == 0).all())
     assert bool((betas[dead - 1:] == 0).all())
     _close(alphas[:dead], ra[:dead], _tol(dtype, loose=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("M", [300, 999])
+def test_bicgstab_kernel(cuda, dtype, M):
+    """B10 on a diagonally dominant non-symmetric K (ragged M)."""
+    rng = np.random.default_rng(M)
+    K, rhs = _on(cuda, dtype, rng.standard_normal((M, M)) / np.sqrt(M)
+                 + 2.0 * np.eye(M), rng.standard_normal(M))
+    before = bicgstab_solve_fused.launches
+    got = bicgstab_solve_fused(K, rhs, iters=16)
+    torch.cuda.synchronize()
+    assert bicgstab_solve_fused.launches == before + 1
+    _close(got, bicgstab_solve_plain(K, rhs, iters=16),
+           _tol(dtype, loose=True))
+
+
+MM_TYPES = [torch.float32, torch.bfloat16]
+
+
+def _mm_tol(dtype, roundings):
+    return 1e-4 if dtype == torch.float32 else roundings * 2.0 ** -8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", MM_TYPES)
+@pytest.mark.parametrize("B,m,k,n", [(5, 40, 24, 56), (3, 128, 64, 128)])
+def test_two_site_merge_kernel(cuda, dtype, B, m, k, n):
+    rng = np.random.default_rng(m)
+    a, b = _on(cuda, dtype, rng.standard_normal((B, m, k)),
+               rng.standard_normal((B, k, n)))
+    before = two_site_merge.launches
+    got = two_site_merge(a, b)
+    torch.cuda.synchronize()
+    assert two_site_merge.launches == before + 1
+    assert got.dtype == torch.float32
+    _close(got, two_site_merge_plain(a, b), 1e-5)
+
+
+def _orthonormal(rng, B, rows, cols):
+    return np.linalg.qr(rng.standard_normal((B, rows, cols)))[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", MM_TYPES)
+@pytest.mark.parametrize("B,m,k", [(5, 40, 24), (3, 128, 128)])
+def test_matmul_chain_kernel(cuda, dtype, B, m, k):
+    rng = np.random.default_rng(k)
+    x, w = _on(cuda, dtype, 0.1 * rng.standard_normal((B, m, k)),
+               _orthonormal(rng, B, k, k))
+    before = matmul_chain.launches
+    got = matmul_chain(x, w, iters=8)
+    torch.cuda.synchronize()
+    assert matmul_chain.launches == before + 1
+    assert got.dtype == dtype
+    _close(got.float(), matmul_chain_plain(x, w, iters=8).float(),
+           _mm_tol(dtype, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", MM_TYPES)
+@pytest.mark.parametrize("B,r,n", [(5, 20, 3), (3, 64, 2)])
+def test_merge_resplit_chain_kernel(cuda, dtype, B, r, n):
+    rng = np.random.default_rng(r)
+    a, b, w = _on(cuda, dtype, 0.1 * rng.standard_normal((B, r * n, r)),
+                  np.swapaxes(_orthonormal(rng, B, n * r, r), 1, 2),
+                  _orthonormal(rng, B, n * r, r))
+    before = merge_resplit_chain.launches
+    got = merge_resplit_chain(a, b, w, iters=8)
+    torch.cuda.synchronize()
+    assert merge_resplit_chain.launches == before + 1
+    _close(got.float(), merge_resplit_chain_plain(a, b, w, iters=8).float(),
+           _mm_tol(dtype, 16))

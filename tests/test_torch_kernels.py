@@ -1,6 +1,7 @@
 """Kernels B1-B4 of ttnx_torch: plain versions against the ttnx kernels,
-the kernel-or-plain gate, and the C interface of the CUDA build (all
-kernels).
+the dense-K local solves of 'cg_fused' and 'bicgstab_fused' (B3, B10)
+against ttnx's, the kernel-or-plain gate, and the C interface of the CUDA
+build (all kernels).
 
 The ttnx kernels run as ttnx's own tests run them on the CPU
 (``interpret=True``). The ttnx env-chain and matrix-free CG kernels compute
@@ -30,12 +31,16 @@ from ttnx.solvers.als_scan import _local_solve_padded as j_local_solve
 
 from ttnx_torch.kernels import _build, dispatch
 from ttnx_torch.kernels import als_sweep_fused  # noqa: F401  (registers B7)
+from ttnx_torch.kernels import contraction  # noqa: F401  (registers B11-B13)
+from ttnx_torch.kernels import lanczos  # noqa: F401  (registers B9)
 from ttnx_torch.kernels.env_chain import (left_env_chain_fused,
                                           left_env_chain_plain,
                                           right_env_chain_fused,
                                           right_env_chain_plain)
 from ttnx_torch.kernels.gram import gram_chain_fused, gram_chain_plain
-from ttnx_torch.kernels.local_cg import cg_solve_fused, cg_solve_plain
+from ttnx_torch.kernels.local_cg import (bicgstab_solve_fused,
+                                         bicgstab_solve_plain,
+                                         cg_solve_fused, cg_solve_plain)
 from ttnx_torch.kernels.local_cg_mf import cg_matfree_fused, cg_matfree_plain
 from ttnx_torch.solvers.als_scan import _local_solve_padded as t_local_solve
 
@@ -47,7 +52,10 @@ def _t(a, dt):
 
 
 def _close(got, ref, tol):
-    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    got, ref = np.asarray(got), np.asarray(ref)
+    dt = np.complex128 if np.iscomplexobj(got) or np.iscomplexobj(ref) \
+        else np.float64
+    got, ref = got.astype(dt), ref.astype(dt)
     assert got.shape == ref.shape
     err = float(np.max(np.abs(got - ref)))
     assert err <= tol * float(np.max(np.abs(ref))), err
@@ -255,10 +263,13 @@ def _gate_cases():
                dict(x0=x0, iters=5)),
         "matfree": (cg_matfree_fused, cg_matfree_plain, mf,
                     dict(x0=p["x0"], iters=5)),
+        "bicgstab": (bicgstab_solve_fused, bicgstab_solve_plain, (K, rhs),
+                     dict(iters=5)),
     }
 
 
-@pytest.mark.parametrize("case", ["gram", "right", "left", "cg", "matfree"])
+@pytest.mark.parametrize("case", ["gram", "right", "left", "cg", "matfree",
+                                  "bicgstab"])
 def test_cpu_tensor_takes_plain_version(case):
     wrapper, plain, args, kwargs = _gate_cases()[case]
     dispatch.reset_launch_counts()
@@ -280,19 +291,53 @@ def test_gate_rejects_other_devices_and_types():
     with pytest.raises(TypeError):
         dispatch.require_real("k", torch.empty(2, dtype=torch.float32),
                               torch.empty(2, dtype=torch.float64))
+    with pytest.raises(TypeError):
+        dispatch.require_mm_type("k", torch.empty(2, dtype=torch.float64))
+    with pytest.raises(TypeError):
+        dispatch.require_mm_type("k", torch.empty(2, dtype=torch.bfloat16),
+                                 torch.empty(2, dtype=torch.float32))
+    dispatch.require_mm_type("k", torch.empty(2, dtype=torch.bfloat16))
     assert set(dispatch.launch_counts()) == {
         "gram_chain_fused", "right_env_chain_fused", "left_env_chain_fused",
         "cg_solve_fused", "cg_matfree_fused", "cg_matfree_fused_batched",
         "env_chain_fused_batched", "als_fwd_bwd_fused_batched",
-        "env_chain_A_fused", "lanczos_fused"}
+        "env_chain_A_fused", "lanczos_fused", "bicgstab_solve_fused",
+        "two_site_merge", "matmul_chain", "merge_resplit_chain"}
 
 
-def test_bicgstab_fused_names_missing_kernel():
-    p = _local_problem(14, R=4)
-    args = [_t(p[k], F64) for k in ("L", "Ac", "Renv", "Lb", "bc", "Rbe",
-                                    "m_l", "m_r")]
-    with pytest.raises(NotImplementedError, match="B10"):
-        t_local_solve(*args, solver="bicgstab_fused")
+def _nonsymmetric_local(seed, R, cplx=False):
+    """A masked local system with a non-symmetric MPO core (a skew part
+    of 0.3 in the physical block), optionally with complex parts (the
+    caller casts every operand to one complex type, as a sweep does)."""
+    p = _local_problem(seed, R=R)
+    rng = np.random.default_rng(seed + 100)
+    skew = rng.standard_normal(p["Ac"].shape) * 0.3
+    p["Ac"] = p["Ac"] + skew - np.swapaxes(skew, 1, 2)
+    if cplx:
+        for k in ("Ac", "Lb", "bc"):
+            p[k] = p[k] + 0.2j * rng.standard_normal(p[k].shape)
+    return p
+
+
+@pytest.mark.parametrize("R,cplx", [(12, False), (24, False), (8, True)],
+                         ids=["dense-K B10", "oversized matrix-free",
+                              "complex matrix-free"])
+def test_bicgstab_fused_local_path_vs_ttnx_f64(R, cplx):
+    """The port's 'bicgstab_fused' local solve against ttnx's on the same
+    masked non-symmetric system: B10 on the assembled K at M = 288 <= 1024,
+    the matrix-free 'bicgstab' at M = 1152 and for complex dtypes (ttnx's
+    routes exactly); f64/c128, 1e-10."""
+    p = _nonsymmetric_local(14 + R, R, cplx)
+    args = ("L", "Ac", "Renv", "Lb", "bc", "Rbe", "m_l", "m_r")
+    dt = torch.complex128 if cplx else torch.float64
+    jdt = jnp.complex128 if cplx else jnp.float64
+    ref = j_local_solve(*(jnp.asarray(p[k], dtype=jdt) for k in args),
+                        v0=jnp.asarray(p["x0"], dtype=jdt),
+                        solver="bicgstab_fused", cg_iters=12)
+    got = t_local_solve(*(torch.as_tensor(p[k]).to(dt) for k in args),
+                        v0=_t(p["x0"], F64).to(dt), solver="bicgstab_fused",
+                        cg_iters=12)
+    _close(got.numpy(), np.asarray(ref), 1e-10)
 
 
 # ---------------------------------------------------------------------------
@@ -320,13 +365,16 @@ def _c_entries():
 def test_c_entries_match_ctypes_signatures():
     entries = _c_entries()
     want = {f"ttnx_{name}_{sfx}": len(args)
-            for name, args in _build._SIGNATURES.items()
-            for sfx in ("f32", "f64")}
+            for name, (args, suffixes) in _build._SIGNATURES.items()
+            for sfx in suffixes}
     assert entries == want
+    assert {sfx for _, suffixes in _build._SIGNATURES.values()
+            for sfx in suffixes} == {"f32", "f64", "bf16"}
 
 
 def test_build_sources_and_flags():
     names = {p.name for p in _build._sources()}
     assert {"gram_chain.cu", "env_chain.cu", "local_cg.cu", "local_cg_mf.cu",
-            "als_sweep_fused.cu", "common.cuh"} <= names
+            "als_sweep_fused.cu", "lanczos.cu", "contraction.cu",
+            "common.cuh"} <= names
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

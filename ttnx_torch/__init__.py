@@ -2,10 +2,13 @@
 CUDA (NVIDIA Hopper).
 
 The port of ``ttnx`` (JAX) slice by slice: the Crank–Nicolson QTT heat
-step, the batched ALS, and the DMRG and TDVP scan tier. Layouts match ``ttnx``: vector
-cores ``(r_left, n, r_right)``, operator cores ``(r_left, n_out, n_in,
-r_right)``, padded stacks ``(d, R, n, R)`` / ``(d, RA, n, n, RA)``, masks
-``(d+1, R)``, big-endian bits. Every device is explicit.
+step, the batched ALS, the DMRG and TDVP scan tier, and the last kernels
+(dense-K BiCGStab behind ``solver='bicgstab_fused'``, the batched core
+contractions of ``ttnx_torch.kernels.contraction``). Layouts match
+``ttnx``: vector cores ``(r_left, n, r_right)``, operator cores
+``(r_left, n_out, n_in, r_right)``, padded stacks ``(d, R, n, R)`` / ``(d,
+RA, n, n, RA)``, masks ``(d+1, R)``, big-endian bits. Every device is
+explicit.
 """
 
 from ttnx_torch.core.algebra import (add, add_op, dot, matmul, matvec, norm,

@@ -115,6 +115,39 @@ __device__ T block_sum(T v, T* red) {
   return red[0];
 }
 
+constexpr int kMatvecRows = 4;  // rows a warp reduces at once
+
+// out = K v for a dense row-major K (M, M), kMatvecRows rows per warp
+// and an unrolled column loop: kMatvecRows * 4 loads in flight a lane,
+// each row summed in the same order as one warp per row would (B9, B10).
+template <typename T>
+__device__ void matvec_rows(const T* K, const T* v, T* out, int M) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  for (int r0 = warp * kMatvecRows; r0 < M; r0 += nw * kMatvecRows) {
+    const T* Kr[kMatvecRows];
+#pragma unroll
+    for (int q = 0; q < kMatvecRows; ++q)
+      Kr[q] = K + (size_t)(r0 + q < M ? r0 + q : r0) * M;
+    T acc[kMatvecRows];
+#pragma unroll
+    for (int q = 0; q < kMatvecRows; ++q) acc[q] = T(0);
+#pragma unroll 4
+    for (int j = lane; j < M; j += 32) {
+      const T vj = v[j];
+#pragma unroll
+      for (int q = 0; q < kMatvecRows; ++q) acc[q] += Kr[q][j] * vj;
+    }
+#pragma unroll
+    for (int q = 0; q < kMatvecRows; ++q) {
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        acc[q] += __shfl_down_sync(0xffffffffu, acc[q], o);
+      if (lane == 0 && r0 + q < M) out[r0 + q] = acc[q];
+    }
+  }
+}
+
 // p[0] = 1, p[1..count) = 0: the e0 e0^T boundary Gram / environment.
 template <typename T>
 __device__ void fill_e0(T* p, int count, int tid, int nthreads) {

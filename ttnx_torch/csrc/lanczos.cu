@@ -19,11 +19,12 @@
 //
 // Design (B3's): one block of 1024 threads runs every step in one launch;
 // K stays in device memory and is re-read from L2. Unlike B3's matvec
-// (one warp per row, one load in flight), a warp takes kRows rows at a
-// time and unrolls its column loop, so kRows * 4 independent loads are in
-// flight per lane. The Krylov basis lives in shared memory when it fits
-// (iters M values: 32 KB in f32 at iters 8, M 1024; 192 KB in f64 at
-// iters 24), else in the output buffer in device memory. The
+// (one warp per row, one load in flight), a warp takes kMatvecRows rows
+// at a time and unrolls its column loop (matvec_rows, common.cuh), so
+// kMatvecRows * 4 independent loads are in flight per lane. The Krylov
+// basis lives in shared memory when it fits (iters M values: 32 KB in
+// f32 at iters 8, M 1024; 192 KB in f64 at iters 24), else in the output
+// buffer in device memory. The
 // reorthogonalization coefficients are one warp per basis row; every
 // inner product and every sum runs in a fixed order, so a call is
 // deterministic.
@@ -33,37 +34,7 @@ namespace ttnx_lanczos {
 using namespace ttnx;
 
 constexpr int kThreads = 1024;
-constexpr int kRows = 4;               // rows a warp reduces at once
 constexpr size_t kSmemBlock = 232448;  // shared memory one block can use
-
-// out = K v for a dense row-major K (M, M), kRows rows per warp
-template <typename T>
-__device__ void matvec_rows(const T* K, const T* v, T* out, int M) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  for (int r0 = warp * kRows; r0 < M; r0 += nw * kRows) {
-    const T* Kr[kRows];
-#pragma unroll
-    for (int q = 0; q < kRows; ++q)
-      Kr[q] = K + (size_t)(r0 + q < M ? r0 + q : r0) * M;
-    T acc[kRows];
-#pragma unroll
-    for (int q = 0; q < kRows; ++q) acc[q] = T(0);
-#pragma unroll 4
-    for (int j = lane; j < M; j += 32) {
-      const T vj = v[j];
-#pragma unroll
-      for (int q = 0; q < kRows; ++q) acc[q] += Kr[q][j] * vj;
-    }
-#pragma unroll
-    for (int q = 0; q < kRows; ++q) {
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1)
-        acc[q] += __shfl_down_sync(0xffffffffu, acc[q], o);
-      if (lane == 0 && r0 + q < M) out[r0 + q] = acc[q];
-    }
-  }
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)

@@ -17,6 +17,13 @@ chain from a random orthonormal rank-4 start), ``dense_xxx_groundstate``
 its independent numpy oracle, and ``tdvp_problem(device)`` the
 imaginary-time TDVP workload (the heat generator on a site-0-canonical
 sine), each as ``bench.py`` sets them up.
+
+``convection_cn_step(device)`` is the CN step of a non-symmetric
+convection–diffusion generator through the dense-K BiCGStab (kernel B10),
+with ``dense_cn_reference`` its sparse-LU oracle;
+``contraction_problem(device)`` and ``matmul_ceiling_problem(device)``
+build the inputs of the rank-64 core contraction chain (kernels B11, B13)
+and its matmul ceiling (B12) as ``bench.py`` does.
 """
 
 from __future__ import annotations
@@ -35,7 +42,10 @@ from ttnx_torch.solvers.round_scan import make_cn_step
 
 __all__ = ["entry", "flagship_cn_step", "three_mode_state",
            "batched_als_problem", "flat_spectrum_stack", "dmrg_problem",
-           "dense_xxx_groundstate", "tdvp_problem"]
+           "dense_xxx_groundstate", "tdvp_problem", "convection_operator",
+           "convection_cn_step",
+           "convection_cn_operators", "dense_cn_reference",
+           "contraction_problem", "matmul_ceiling_problem"]
 
 
 def flagship_cn_step(device, rmax: int = 16, d: int = 12, h: float = 1e-9,
@@ -188,3 +198,85 @@ def tdvp_problem(device, d: int = 10, rmax: int = 8, *,
                 masks=rank_masks(u_rks, rmax, dtype=dtype, device=device),
                 u_rks=u_rks, u0=u0,
                 lam1=0.1 * (2 - 2 * np.cos(np.pi * hg)) / hg ** 2)
+
+
+def convection_operator(d: int, c: float, device="cpu"):
+    """``A = -(1/hg^2) toeplitz_to_qtto(2, -1, -1) + (c/(2 hg))
+    toeplitz_to_qtto(0, 1, -1)`` on the interior grid ``hg = 1/(2^d + 1)``:
+    diffusion and central convection (non-symmetric, MPO rank 6)."""
+    hg = 1.0 / (2 ** d + 1)
+    return add_op(
+        (-1.0 / hg ** 2) * toeplitz_to_qtto(2.0, -1.0, -1.0, d,
+                                            device=device),
+        (c / (2 * hg)) * toeplitz_to_qtto(0.0, 1.0, -1.0, d, device=device))
+
+
+def convection_cn_step(device, rmax: int = 16, d: int = 12, h: float = 1e-6,
+                       c: float = 1e3, dtype=torch.float32,
+                       bicg_iters: int = 32):
+    """``make_cn_step`` of ``du/dt = A u`` for :func:`convection_operator`,
+    at the flagship's settings with ``solver='bicgstab_fused'``
+    (``bicg_iters`` cold BiCGStab steps a local solve)."""
+    A = convection_operator(d, c, device)
+    return make_cn_step(
+        A, h, rmax=rmax, dims=(2,) * d,
+        u_rks=(1,) + (rmax,) * (d - 1) + (1,), dtype=dtype, sweep_count=2,
+        solver="bicgstab_fused", round_method="gram_chain",
+        precision="highest", cg_iters=bicg_iters)
+
+
+def convection_cn_operators(d: int, hg: float, h: float, c: float):
+    """``(I - h/2 A, I + h/2 A)`` as scipy sparse matrices for the exact
+    tridiagonal :func:`convection_operator`, float64."""
+    from scipy import sparse
+
+    N = 2 ** d
+    # toeplitz_to_qtto(0, 1, -1)'s +1 sits at (i, i+1) of the dense matrix
+    lower = 1.0 / hg ** 2 - c / (2 * hg)   # A[i, i-1]
+    upper = 1.0 / hg ** 2 + c / (2 * hg)   # A[i, i+1]
+    A = sparse.diags([np.full(N - 1, lower), np.full(N, -2.0 / hg ** 2),
+                      np.full(N - 1, upper)], [-1, 0, 1], format="csc")
+    eye = sparse.identity(N, format="csc")
+    return eye - (h / 2) * A, eye + (h / 2) * A
+
+
+def dense_cn_reference(d: int, hg: float, h: float, c: float, u0, steps: int):
+    """``steps`` exact CN steps of :func:`convection_cn_step`'s generator
+    from the dense vector ``u0`` (length ``2^d``): sparse LU of ``I - h/2
+    A`` with numpy and scipy alone, float64."""
+    from scipy.sparse.linalg import splu
+
+    lhs, rhs = convection_cn_operators(d, hg, h, c)
+    lu = splu(lhs.tocsc())
+    u = np.asarray(u0, dtype=np.float64).reshape(-1)
+    for _ in range(steps):
+        u = lu.solve(rhs @ u)
+    return u
+
+
+def contraction_problem(device, batch: int = 4096, r: int = 64, n: int = 2,
+                        dtype=torch.bfloat16, seed: int = 0):
+    """The inputs of ``bench_pallas_chain`` on ``device``: ``a (batch, r n,
+    r)`` (0.1 N(0, 1)), ``b (batch, r, n r)`` and ``w (batch, n r, r)``
+    orthonormal factors from numpy's ``default_rng(seed)`` and QR, cast to
+    ``dtype``. Returns a dict of the three."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((batch, r * n, r)) * 0.1
+    b = np.swapaxes(np.linalg.qr(rng.standard_normal((batch, n * r, r)))[0],
+                    1, 2)
+    w = np.linalg.qr(rng.standard_normal((batch, n * r, r)))[0]
+    return {k: torch.as_tensor(np.ascontiguousarray(v)).to(device, dtype)
+            for k, v in (("a", a), ("b", b), ("w", w))}
+
+
+def matmul_ceiling_problem(device, batch: int = 4096, m: int = 128,
+                           k: int = 128, seed: int = 2,
+                           dtype=torch.bfloat16):
+    """The inputs of ``bench_pallas_matmul_ceiling``'s chain on ``device``:
+    ``x (batch, m, k)`` (0.1 N(0, 1)) and orthonormal ``w (batch, k, k)``
+    from numpy's ``default_rng(seed)`` and QR, cast to ``dtype``."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((batch, m, k)) * 0.1
+    w = np.linalg.qr(rng.standard_normal((batch, k, k)))[0]
+    return {k_: torch.as_tensor(v).to(device, dtype)
+            for k_, v in (("x", x), ("w", w))}

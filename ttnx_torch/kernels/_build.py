@@ -12,7 +12,10 @@ together, then one link::
 The file name carries a hash of the sources and flags, so an edited kernel
 never loads a stale library. The library is loaded with ``ctypes``; every
 entry point takes ``c_void_p`` for pointers and the stream, ``c_int`` for
-sizes, and returns ``cudaGetLastError()`` after its launches.
+sizes, and returns ``cudaGetLastError()`` after its launches. Each entry
+point exists for the dtype suffixes its signature lists: ``f32`` and
+``f64`` for the linear-algebra kernels, ``bf16`` and ``f32`` for the
+contraction kernels.
 """
 
 from __future__ import annotations
@@ -34,29 +37,43 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
 P, I = ctypes.c_void_p, ctypes.c_int
-# entry point -> argument types (the stream is always the last pointer)
+REAL = ("f32", "f64")   # the linear-algebra kernels: IEEE f32 and f64
+MM = ("bf16", "f32")    # the contraction kernels: the TPU kernels' types
+# entry point -> (argument types, dtype suffixes); the stream is always the
+# last pointer
 _SIGNATURES = {
     # y, out, scratch, d, R, n, stream
-    "gram_chain": [P, P, P, I, I, I, P],
+    "gram_chain": ([P, P, P, I, I, I, P], REAL),
     # x, A, b, envs, envs_b, scratch, d, R, RA, n, Rb, stream
-    "env_chain_right": [P, P, P, P, P, P, I, I, I, I, I, P],
-    "env_chain_left": [P, P, P, P, P, P, I, I, I, I, I, P],
+    "env_chain_right": ([P, P, P, P, P, P, I, I, I, I, I, P], REAL),
+    "env_chain_left": ([P, P, P, P, P, P, I, I, I, I, I, P], REAL),
     # x, A, envs, scratch, d, R, RA, n, stream
-    "env_chain_A_right": [P, P, P, P, I, I, I, I, P],
-    "env_chain_A_left": [P, P, P, P, I, I, I, I, P],
+    "env_chain_A_right": ([P, P, P, P, I, I, I, I, P], REAL),
+    "env_chain_A_left": ([P, P, P, P, I, I, I, I, P], REAL),
     # K, v0, Q, alphas, betas, M, iters, stream
-    "lanczos": [P, P, P, P, P, I, I, P],
+    "lanczos": ([P, P, P, P, P, I, I, P], REAL),
     # K, rhs, x0, out, M, iters, warm, stream
-    "cg_solve": [P, P, P, P, I, I, I, P],
+    "cg_solve": ([P, P, P, P, I, I, I, P], REAL),
+    # K, rhs, out, M, iters, stream
+    "bicgstab": ([P, P, P, I, I, P], REAL),
     # L, Ac, Renv, rhs, mask, x0, out, scratch, R, RA, n, iters, warm, stream
-    "cg_matfree": [P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+    "cg_matfree": ([P, P, P, P, P, P, P, P, I, I, I, I, I, P], REAL),
     # the same with B first among the sizes
-    "cg_matfree_batched": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+    "cg_matfree_batched": ([P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+                           REAL),
     # x, A, b, envs, envs_b, scratch, B, d, R, RA, n, Rb, left, raw, stream
-    "env_chain_batched": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+    "env_chain_batched": ([P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
+                          REAL),
     # A, b, x, masks, out, scratch, B, d, R, RA, n, cg_iters, cg_refine,
     # cg_polish, ns1, ns2, stream
-    "als_sweep_pair": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
+    "als_sweep_pair": ([P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
+                       REAL),
+    # a, b, out, B, m, k, n, stream
+    "two_site_merge": ([P, P, P, I, I, I, I, P], MM),
+    # x, w, out, B, m, k, iters, stream
+    "matmul_chain": ([P, P, P, I, I, I, I, P], MM),
+    # a, b, w, out, B, m, r, n, iters, stream
+    "merge_resplit_chain": ([P, P, P, P, I, I, I, I, I, P], MM),
 }
 # size queries (no stream, no dtype suffix) -> argument types; return
 # c_longlong
@@ -130,8 +147,8 @@ def lib():
     global _LIB
     if _LIB is None:
         handle = ctypes.CDLL(str(build()))
-        for name, argtypes in _SIGNATURES.items():
-            for suffix in ("f32", "f64"):
+        for name, (argtypes, suffixes) in _SIGNATURES.items():
+            for suffix in suffixes:
                 fn = getattr(handle, f"ttnx_{name}_{suffix}")
                 fn.argtypes = argtypes
                 fn.restype = ctypes.c_int
@@ -149,11 +166,14 @@ def query(name: str, *args) -> int:
 
 
 def call(name: str, dtype, *args) -> None:
-    """Launch entry point ``ttnx_<name>_<f32|f64>`` on the current stream
-    and raise if CUDA reported an error."""
+    """Launch entry point ``ttnx_<name>_<f32|f64|bf16>`` on the current
+    stream and raise if CUDA reported an error."""
     import torch
 
-    suffix = {torch.float32: "f32", torch.float64: "f64"}[dtype]
+    suffix = {torch.float32: "f32", torch.float64: "f64",
+              torch.bfloat16: "bf16"}.get(dtype)
+    if suffix not in _SIGNATURES[name][1]:
+        raise TypeError(f"ttnx_{name} has no {dtype} entry point")
     stream = torch.cuda.current_stream().cuda_stream
     err = getattr(lib(), f"ttnx_{name}_{suffix}")(*args, stream)
     if err != 0:

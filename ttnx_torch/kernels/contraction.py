@@ -1,0 +1,115 @@
+"""Kernels B11, B12, B13: the batched core contractions.
+
+* :func:`two_site_merge` (B13): ``C[p] = A[p] @ B[p]`` for ``A (B, m, k)``,
+  ``B (B, k, n)``, returned in float32 for every input type.
+* :func:`matmul_chain` (B12): ``iters`` rounds of ``x <- x @ w``, each
+  product accumulated in float32 and cast to ``x``'s type — the measured
+  ceiling of the contraction benchmark.
+* :func:`merge_resplit_chain` (B11): ``iters`` rounds of ``c = acc @ b``
+  (cast to ``b``'s type) and ``acc = c @ w`` (cast to ``a``'s type) for
+  ``a (B, r n, r)``, ``b (B, r, n r)``, ``w (B, n r, r)`` — the chained
+  merge and re-split behind the headline contraction metric.
+
+Each wrapper launches its Hopper kernel (``csrc/contraction.cu``, one
+launch a call) for CUDA tensors and runs its plain PyTorch version for CPU
+tensors. The kernels take bfloat16 and float32, one type for all operands;
+the plain versions compute every product in float32 on the exact
+products of the operands and round where the kernels do. The TPU kernels'
+``block_b`` and ``unroll`` only set their VMEM tiling and have no
+counterpart here. The callers pass orthonormal ``b``, ``w`` so the
+normalization-free chains stay bounded.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ttnx_torch.kernels import _build
+from ttnx_torch.kernels.dispatch import counted, require_mm_type, use_kernel
+
+__all__ = ["two_site_merge", "two_site_merge_plain", "matmul_chain",
+           "matmul_chain_plain", "merge_resplit_chain",
+           "merge_resplit_chain_plain"]
+
+
+def _bmm32(x, y):
+    """``x @ y`` batched, accumulated in float32 (no TF32)."""
+    return torch.bmm(x.float(), y.float())
+
+
+def _check(name, shapes_ok, *tensors):
+    require_mm_type(name, *tensors)
+    if not shapes_ok:
+        raise ValueError(f"{name}: operand shapes "
+                         f"{[tuple(t.shape) for t in tensors]} do not chain")
+
+
+def two_site_merge_plain(a, b):
+    """Plain PyTorch version of :func:`two_site_merge`."""
+    return _bmm32(a, b)
+
+
+@counted
+def two_site_merge(a, b):
+    """Batched ``A (B, m, k) @ B (B, k, n)`` in float32."""
+    B, m, k = a.shape
+    _check("two_site_merge", b.dim() == 3 and b.shape[:2] == (B, k), a, b)
+    if not use_kernel(a, b):
+        return two_site_merge_plain(a, b)
+    n = b.shape[2]
+    a, b = a.contiguous(), b.contiguous()
+    out = torch.empty((B, m, n), dtype=torch.float32, device=a.device)
+    _build.call("two_site_merge", a.dtype, a.data_ptr(), b.data_ptr(),
+                out.data_ptr(), B, m, k, n)
+    two_site_merge.launches += 1
+    return out
+
+
+def matmul_chain_plain(x, w, iters: int = 8):
+    """Plain PyTorch version of :func:`matmul_chain`."""
+    for _ in range(iters):
+        x = _bmm32(x, w).to(x.dtype)
+    return x
+
+
+@counted
+def matmul_chain(x, w, iters: int = 8):
+    """``iters`` rounds of ``x <- x @ w`` for ``x (B, m, k)``, ``w (B, k,
+    k)``; returns ``x``'s type."""
+    B, m, k = x.shape
+    _check("matmul_chain", w.shape == (B, k, k), x, w)
+    if not use_kernel(x, w):
+        return matmul_chain_plain(x, w, iters)
+    x, w = x.contiguous(), w.contiguous()
+    out = torch.empty_like(x)
+    _build.call("matmul_chain", x.dtype, x.data_ptr(), w.data_ptr(),
+                out.data_ptr(), B, m, k, int(iters))
+    matmul_chain.launches += 1
+    return out
+
+
+def merge_resplit_chain_plain(a, b, w, iters: int = 8):
+    """Plain PyTorch version of :func:`merge_resplit_chain`."""
+    acc = a
+    for _ in range(iters):
+        c = _bmm32(acc, b).to(b.dtype)
+        acc = _bmm32(c, w).to(a.dtype)
+    return acc
+
+
+@counted
+def merge_resplit_chain(a, b, w, iters: int = 8):
+    """``iters`` rounds of merge (``@ b``) and re-split (``@ w``) for ``a
+    (B, m, r)``, ``b (B, r, n)``, ``w (B, n, r)``; returns ``a``'s type."""
+    B, m, r = a.shape
+    n = b.shape[2] if b.dim() == 3 else -1
+    _check("merge_resplit_chain",
+           b.shape == (B, r, n) and w.shape == (B, n, r), a, b, w)
+    if not use_kernel(a, b, w):
+        return merge_resplit_chain_plain(a, b, w, iters)
+    a, b, w = a.contiguous(), b.contiguous(), w.contiguous()
+    out = torch.empty_like(a)
+    _build.call("merge_resplit_chain", a.dtype, a.data_ptr(), b.data_ptr(),
+                w.data_ptr(), out.data_ptr(), B, m, r, n, int(iters))
+    merge_resplit_chain.launches += 1
+    return out

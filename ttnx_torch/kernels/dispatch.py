@@ -16,7 +16,7 @@ from __future__ import annotations
 import torch
 
 __all__ = ["use_kernel", "counted", "launch_counts", "reset_launch_counts",
-           "require_real", "can_fuse_local_cg"]
+           "require_real", "require_mm_type", "can_fuse_local_cg"]
 
 _COUNTED = []
 
@@ -34,15 +34,25 @@ def use_kernel(*tensors: torch.Tensor) -> bool:
                      f"on the CPU, got devices {sorted(types)}")
 
 
-def require_real(name: str, *tensors: torch.Tensor) -> None:
-    """The Hopper kernels take float32 and float64 only."""
+def _require_types(name, allowed, tensors) -> None:
     for t in tensors:
-        if t.dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"{name}: the CUDA kernel takes float32 or "
-                            f"float64, got {t.dtype}")
+        if t.dtype not in allowed:
+            raise TypeError(f"{name}: the CUDA kernel takes "
+                            f"{' or '.join(map(str, allowed))}, got {t.dtype}")
         if t.dtype != tensors[0].dtype:
             raise TypeError(f"{name}: mixed dtypes {t.dtype} and "
                             f"{tensors[0].dtype}")
+
+
+def require_real(name: str, *tensors: torch.Tensor) -> None:
+    """The linear-algebra kernels take float32 and float64 only."""
+    _require_types(name, (torch.float32, torch.float64), tensors)
+
+
+def require_mm_type(name: str, *tensors: torch.Tensor) -> None:
+    """The contraction kernels take bfloat16 and float32, one type for all
+    operands: the TPU kernels' types (they have no float64)."""
+    _require_types(name, (torch.bfloat16, torch.float32), tensors)
 
 
 def counted(fn):
@@ -63,7 +73,8 @@ def reset_launch_counts() -> None:
 
 
 def can_fuse_local_cg(dtype, M: int) -> bool:
-    """Dense-K CG (kernel B3) for real dtypes at ``M <= 1024``; larger real
-    systems take the matrix-free CG (kernel B4), complex ones the einsum
-    'cg' path — the same split as the JAX package."""
+    """Dense-K CG (kernel B3) and BiCGStab (kernel B10) for real dtypes at
+    ``M <= 1024``; larger real CG systems take the matrix-free CG (kernel
+    B4), complex ones and larger BiCGStab systems the einsum 'cg' and
+    'bicgstab' paths — the same split as the JAX package."""
     return not dtype.is_complex and M <= 1024

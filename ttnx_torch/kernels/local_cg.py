@@ -1,10 +1,13 @@
-"""Kernel B3: fixed-iteration CG on the dense masked local operator.
+"""Kernels B3 and B10: fixed-iteration CG and BiCGStab on the dense masked
+local operator.
 
 One ALS microstep solves ``K v = rhs`` with ``K (M, M)``, ``M = R * n * R``.
 At rank 16 (``M = 512``) the dense K is assembled and
-:func:`cg_solve_fused` runs every CG iteration, plus the warm-start
-matvec, in one launch of the Hopper kernel (``csrc/local_cg.cu``) for a
-CUDA tensor, or :func:`cg_solve_plain` for a CPU tensor.
+:func:`cg_solve_fused` (SPD K) runs every CG iteration, plus the
+warm-start matvec, in one launch of the Hopper kernel
+(``csrc/local_cg.cu``) for a CUDA tensor, or :func:`cg_solve_plain` for a
+CPU tensor. :func:`bicgstab_solve_fused` does the same for a general K
+by BiCGStab, always from a cold start as the JAX kernel does.
 
 ``x0`` and ``iters`` are keyword-only (the JAX twin takes ``x0`` as its
 third positional parameter, ahead of ``iters``).
@@ -17,7 +20,8 @@ import torch
 from ttnx_torch.kernels import _build
 from ttnx_torch.kernels.dispatch import counted, require_real, use_kernel
 
-__all__ = ["cg_solve_fused", "cg_solve_plain"]
+__all__ = ["cg_solve_fused", "cg_solve_plain", "bicgstab_solve_fused",
+           "bicgstab_solve_plain"]
 
 
 def _safe_div(a, c):
@@ -69,4 +73,48 @@ def cg_solve_fused(K, rhs, *, x0=None, iters: int = 48):
                 x0c.data_ptr(), out.data_ptr(), M, int(iters),
                 int(x0 is not None))
     cg_solve_fused.launches += 1
+    return out
+
+
+def bicgstab_solve_plain(K, rhs, *, iters: int = 32):
+    """Plain PyTorch version of :func:`bicgstab_solve_fused`: ``iters``
+    unpreconditioned BiCGStab steps from zero with ``rhat = rhs``, every
+    division guarded (a zero denominator gives 0). No host syncs."""
+    x = torch.zeros_like(rhs)
+    r = rhs
+    rhat = rhs
+    rho = torch.dot(rhat, r)
+    p = r
+    for _ in range(iters):
+        v = K @ p
+        alpha = _safe_div(rho, torch.dot(rhat, v))
+        s = r - alpha * v
+        t = K @ s
+        omega = _safe_div(torch.dot(t, s), torch.dot(t, t))
+        x = x + alpha * p + omega * s
+        r = s - omega * t
+        rho_new = torch.dot(rhat, r)
+        beta = _safe_div(rho_new, rho) * _safe_div(alpha, omega)
+        p = r + beta * (p - omega * v)
+        rho = rho_new
+    return x
+
+
+@counted
+def bicgstab_solve_fused(K, rhs, *, iters: int = 32):
+    """Solve ``K x = rhs`` for a general ``K (M, M)``, ``rhs (M,)`` by
+    ``iters`` BiCGStab steps from zero: one Hopper kernel launch for CUDA
+    tensors (real f32/f64), the plain version for CPU tensors."""
+    if not use_kernel(K, rhs):
+        return bicgstab_solve_plain(K, rhs, iters=iters)
+    require_real("bicgstab_solve_fused", K, rhs)
+    M = K.shape[0]
+    if K.shape != (M, M) or rhs.shape != (M,) or iters < 0:
+        raise ValueError("bicgstab_solve_fused: K must be (M, M), rhs (M,), "
+                         "iters >= 0")
+    K, rhs = K.contiguous(), rhs.contiguous()
+    out = torch.empty_like(rhs)
+    _build.call("bicgstab", K.dtype, K.data_ptr(), rhs.data_ptr(),
+                out.data_ptr(), M, int(iters))
+    bicgstab_solve_fused.launches += 1
     return out

@@ -8,9 +8,10 @@ returns zeros there. The site loops are Python loops over the site axis.
 
 The environment stacks go through kernel B2
 (:mod:`ttnx_torch.kernels.env_chain`), the rank <= 16 local CG through B3
-(:mod:`ttnx_torch.kernels.local_cg`) and larger local CG through B4
-(:mod:`ttnx_torch.kernels.local_cg_mf`) for real dtypes; each wrapper runs
-its Hopper kernel on CUDA tensors and its plain version on CPU tensors.
+and BiCGStab through B10 (:mod:`ttnx_torch.kernels.local_cg`) and larger
+local CG through B4 (:mod:`ttnx_torch.kernels.local_cg_mf`) for real
+dtypes; each wrapper runs its Hopper kernel on CUDA tensors and its plain
+version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ from ttnx_torch.kernels.env_chain import (boundary_envs, left_env_b_update,
                                           right_env_chain_fused,
                                           right_env_chain_plain,
                                           right_env_update)
-from ttnx_torch.kernels.local_cg import _safe_div, cg_solve_fused
+from ttnx_torch.kernels.local_cg import (_safe_div, bicgstab_solve_fused,
+                                         cg_solve_fused)
 from ttnx_torch.kernels.local_cg_mf import (_vdot, apply_local_op,
                                             cg_matfree_fused,
                                             cg_matfree_plain)
@@ -116,8 +118,10 @@ def _local_solve_padded(L, Ac, Renv, Lb, bc, Rb_env, m_l, m_r, v0=None,
     it; ``'cg'`` runs fixed-iteration CG with a matrix-free masked apply;
     ``'bicgstab'`` is its non-symmetric analog. ``'cg_fused'`` runs the
     whole CG in one kernel: dense K through B3 at ``M <= 1024``, matrix-free
-    through B4 above. Complex dtypes take ``'cg'``. ``'bicgstab_fused'``
-    needs kernel B10, which is not ported yet."""
+    through B4 above. ``'bicgstab_fused'`` runs the whole BiCGStab (cold
+    start) on the dense K through B10 at ``M <= 1024``. Complex dtypes take
+    ``'cg'``, and ``'bicgstab_fused'`` above ``M = 1024`` or for complex
+    dtypes the matrix-free ``'bicgstab'`` — never ``'lu'``."""
     R = L.shape[0]
     n = Ac.shape[1]
     M = R * n * R
@@ -125,9 +129,11 @@ def _local_solve_padded(L, Ac, Renv, Lb, bc, Rb_env, m_l, m_r, v0=None,
     t = torch.einsum("au,uiv->aiv", Lb, bc)
     rhs = torch.einsum("aiv,cv->aic", t, Rb_env) * maskv3
     if solver == "bicgstab_fused":
-        raise NotImplementedError(
-            "solver='bicgstab_fused' needs kernel B10 (bicgstab_solve_fused, "
-            "ttnx/kernels/local_cg.py), which ttnx_torch has not ported yet")
+        if can_fuse_local_cg(L.dtype, M):
+            K = _assemble_K_padded(L, Ac, Renv, maskv3)
+            V = bicgstab_solve_fused(K, rhs.reshape(M), iters=cg_iters)
+            return V.reshape(R, n, R)
+        solver = "bicgstab"
     if solver == "cg_fused":
         if can_fuse_local_cg(L.dtype, M):
             K = _assemble_K_padded(L, Ac, Renv, maskv3)

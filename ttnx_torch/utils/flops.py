@@ -1,5 +1,5 @@
-"""Analytic FLOP accounting for the CN step, the batched ALS and the DMRG
-eigensweep.
+"""Analytic FLOP accounting for the CN step, the batched ALS, the DMRG
+eigensweep and the core contraction chains.
 
 Counts the executed (padded-shape) contraction FLOPs, the numerator for
 achieved-rate reporting. Each einsum is costed along numpy's optimal
@@ -13,7 +13,9 @@ from __future__ import annotations
 import numpy as np
 
 __all__ = ["einsum_flops", "als_sweeps_flops", "cn_step_flops",
-           "gram_chain_flops", "round_gram_flops", "dmrg_eig_sweep_flops"]
+           "gram_chain_flops", "round_gram_flops", "dmrg_eig_sweep_flops",
+           "cn_step_bicgstab_flops", "contraction_chain_flops",
+           "matmul_chain_flops"]
 
 
 def einsum_flops(expr: str, *shapes) -> float:
@@ -82,6 +84,25 @@ def cn_step_flops(d: int, R: int, RA_lhs: int, RA_rhs: int, n: int = 2,
             + als_sweeps_flops(d, R, RA_lhs, R, n, sweep_count, cg_iters))
 
 
+def cn_step_bicgstab_flops(d: int, R: int, RA_lhs: int, RA_rhs: int,
+                           n: int = 2, sweep_count: int = 2,
+                           bicg_iters: int = 32) -> float:
+    """Contraction FLOPs of one CN step with ``solver='bicgstab_fused'``
+    (gram_chain rounding): as :func:`cn_step_flops`, with every local solve
+    an assembly of the dense K (``M = R n R``) and ``bicg_iters`` BiCGStab
+    iterations of two ``(M, M)`` matvecs in place of the matrix-free CG."""
+    RB, M = RA_rhs * R, R * n * R
+    matvec = einsum_flops("kaijb,kcjd->kacibd",
+                          (d, RA_rhs, n, n, RA_rhs), (d, R, n, R))
+    assemble = (einsum_flops("aWb,WiJw->aibJw", (R, RA_lhs, R),
+                             (RA_lhs, n, n, RA_lhs))
+                + einsum_flops("aibJw,cwd->aicbJd", (R, n, R, n, RA_lhs),
+                               (R, RA_lhs, R)))
+    solves = sweep_count * (d - 1) * (assemble + bicg_iters * 4.0 * M * M)
+    return (matvec + round_gram_flops(d, RB, R, n) + solves
+            + als_sweeps_flops(d, R, RA_lhs, R, n, sweep_count, cg_iters=0))
+
+
 def dmrg_eig_sweep_flops(d: int, R: int, RA: int, n: int = 2,
                          lanczos_iters: int = 8) -> float:
     """Contraction FLOPs of one ``dmrg_eig_sweep`` with matrix-free
@@ -95,3 +116,15 @@ def dmrg_eig_sweep_flops(d: int, R: int, RA: int, n: int = 2,
                           (R, RA, R), (RA, n, n, RA), (RA, n, n, RA),
                           (R, RA, R), (R, n, n, R))
     return 2 * d * env + 2 * (d - 1) * (lanczos_iters * apply2 + env)
+
+
+def contraction_chain_flops(batch: int, r: int, n: int, iters: int) -> float:
+    """``merge_resplit_chain`` (``bench_pallas_chain``): a merge ``(r n, r)
+    @ (r, n r)`` and a re-split ``(r n, n r) @ (n r, r)`` a round."""
+    return 2 * (2.0 * batch * (r * n) * r * (n * r)) * iters
+
+
+def matmul_chain_flops(batch: int, m: int, k: int, iters: int) -> float:
+    """``matmul_chain`` (``bench_pallas_matmul_ceiling``): one ``(m, k) @
+    (k, k)`` product a round."""
+    return 2.0 * batch * m * k * k * iters
