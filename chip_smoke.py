@@ -59,8 +59,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    (<= 1e-4) and f64 (<= 1e-10); B11 and B12 at the bench shapes, compared
    at 8 iterations (at the bench's 2048 the iterate has decayed to zero),
    bf16 (one bf16 ulp, 2^-8, for each rounding of the chain: 16 for B11,
-   8 for B12) and f32 (<= 1e-4); B13 at (4096, 128, 64) @ (4096, 64, 128)
-   in bf16 and f32 (<= 1e-5), with torch.bmm's time beside it.
+   8 for B12) and f32 (<= 1e-4); B11 again at the bench's 2048 iterations
+   on the norm-keeping input (entry.norm_keeping_contraction_problem, b w
+   = I exactly in bf16), bf16: rel Frobenius <= 1e-3 and the output norm
+   within 1 % of the input's; B13 at (4096, 128, 64) @ (4096, 64, 128) in
+   bf16 and f32 (<= 1e-5), with torch.bmm's time beside it. Each B11 and
+   B13 line names the kernel route the wrapper chose by shape.
 8. Convection-diffusion CN path: d=12, rmax=16, f32, h=1e-6, c=1e3,
    solver='bicgstab_fused' (32 cold BiCGStab iterations a local solve),
    8 chained steps from the three-mode state (median of 3 chains after a
@@ -73,7 +77,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    and matmul_chain at 1024 (B12), each once for its launch count, then
    timed (CUDA events, median of 3 after a warm-up) through the kernel
    and the plain loop; finite outputs, GFLOP/s and the share of the bf16
-   bound.
+   bound; beside the bench chain's decay, B11's norm ratio after 2048
+   iterations on the norm-keeping input.
 
 The last two lines are a JSON summary of the kernels (13 rows: errors,
 times, bound, library time) and the device line ``{"ok": true, "device":
@@ -461,10 +466,12 @@ def hold(name, rmax, dtype, args, kwargs, reps=10, repeats=5, tag="",
     big = max((a for a in args if torch.is_tensor(a)), key=torch.numel)
     shape = "x".join(str(s) for s in big.shape)
     ok = rel_err <= tol
+    route = getattr(kernel, "route", None)
     log(f"kernel {KERNELS[name][0]} {name:25s} r{rmax:<3d} "
         f"{str(dtype)[6:]:8s} in {shape:16s}{tag} max_rel_err "
         f"{rel_err:.3e} (<= {tol:.2e}) max_abs_err {abs_err:.3e} | kernel "
-        f"{ms:.4f} ms  plain {plain_ms:.4f} ms  {'ok' if ok else 'FAIL'}")
+        f"{ms:.4f} ms  plain {plain_ms:.4f} ms"
+        f"{f'  route {route}' if route else ''}  {'ok' if ok else 'FAIL'}")
     if not ok:
         raise RuntimeError(
             f"{name} r{rmax} {dtype}{tag}: kernel disagrees with its plain "
@@ -978,6 +985,37 @@ def singular_site_report(args, kwargs):
         f"{np.abs(got - ref).max() / np.abs(ref).max():.3e}")
 
 
+def fro_err(got, ref):
+    """(max abs err, relative Frobenius err) in float32."""
+    got, ref = got.float(), ref.float()
+    return (float((got - ref).abs().max()),
+            float((got - ref).norm() / ref.norm()))
+
+
+def norm_keeping_hold(device):
+    """B11 at the bench shape and 2048 iterations on the norm-keeping
+    input, bf16: rel Frobenius <= 1e-3 against the plain version, output
+    norm within 1 % of the input's."""
+    from ttnx_torch.entry import norm_keeping_contraction_problem
+    from ttnx_torch.kernels.contraction import merge_resplit_chain
+
+    p = norm_keeping_contraction_problem(device)
+    args = (p["a"], p["b"], p["w"])
+    row = hold("merge_resplit_chain", 64, torch.bfloat16, args,
+               dict(iters=CHAIN_ITERS), 1, 1,
+               f" iters {CHAIN_ITERS} norm-keeping", fro_err, 1e-3)
+    out = merge_resplit_chain(*args, iters=CHAIN_ITERS).float()
+    a = p["a"].float()
+    ratio = float(out.norm() / a.norm())
+    moved = float((out - a).norm() / a.norm())
+    log(f"B11 norm-keeping bf16 {tuple(a.shape)} iters {CHAIN_ITERS}: "
+        f"|out| / |a| {ratio:.7f} (within 1 %) | |out - a| / |a| "
+        f"{moved:.3e} (the roundings' drift)")
+    if not (np.isfinite(ratio) and abs(ratio - 1.0) <= 1e-2):
+        raise RuntimeError(f"B11 norm-keeping: norm ratio {ratio}")
+    return row
+
+
 def phase_new_kernels(device):
     """3d: B10-B13 against their plain versions."""
     from ttnx_torch.entry import contraction_problem, matmul_ceiling_problem
@@ -1013,6 +1051,7 @@ def phase_new_kernels(device):
             SHORT_ITERS * BF16_ULP if bf else 1e-4))
         rows.append(hold("two_site_merge", 64, dtype, (p["a"], p["b"]), {},
                          reps, repeats, " merge", as_float(max_err), 1e-5))
+    rows.append(norm_keeping_hold(device))
     return rows
 
 
@@ -1084,7 +1123,8 @@ def library_bmm_ms(a, b):
 def phase_contraction_path(device):
     """9: the contraction path at the bench's shapes in bf16; returns (the
     launch counts, one row per kernel)."""
-    from ttnx_torch.entry import contraction_problem, matmul_ceiling_problem
+    from ttnx_torch.entry import (contraction_problem, matmul_ceiling_problem,
+                                  norm_keeping_contraction_problem)
     from ttnx_torch.kernels import contraction as ct
     from ttnx_torch.kernels.dispatch import launch_counts, reset_launch_counts
     from ttnx_torch.utils.flops import (contraction_chain_flops,
@@ -1100,10 +1140,16 @@ def phase_contraction_path(device):
     decay = {it: float(ct.merge_resplit_chain(p["a"], p["b"], p["w"],
                                               iters=it).float().norm())
              / start for it in (8, 64, 256, 2048)}
+    nk = norm_keeping_contraction_problem(device)
+    kept = float(ct.merge_resplit_chain(nk["a"], nk["b"], nk["w"],
+                                        iters=CHAIN_ITERS).float().norm()
+                 / nk["a"].float().norm())
     log(f"contraction chain: spectral radius of b w median "
         f"{np.median(rho):.3f} max {rho.max():.3f} (bf16 factors) | "
         f"|acc| / |a| after {list(decay)} iterations (B11, bf16): "
-        f"{[f'{v:.3e}' for v in decay.values()]}")
+        f"{[f'{v:.3e}' for v in decay.values()]} | norm-keeping input "
+        f"(b w = I): |acc| / |a| after {CHAIN_ITERS} iterations "
+        f"{kept:.7f}")
     runs = {
         "two_site_merge": (lambda: ct.two_site_merge(p["a"], p["b"]),
                            (p["a"], p["b"]), {}, 2.0 * B * r2 * r * r2),
@@ -1140,8 +1186,10 @@ def phase_contraction_path(device):
                    library_ms=(library_bmm_ms(*args)
                                if name == "two_site_merge" else None))
         bound_ms, by = bound(row)
+        route = getattr(wrappers()[name][0], "route", None)
         log(f"contraction {KERNELS[name][0]} {name} bf16 "
-            f"{tuple(args[0].shape)} {kw}: {ms:.3f} ms "
+            f"{tuple(args[0].shape)} {kw}"
+            f"{f' route {route}' if route else ''}: {ms:.3f} ms "
             f"({flops / ms / 1e6:.1f} GFLOP/s, "
             f"{bound_ms / ms:.3f} of the {by} bound {bound_ms:.4f} ms) | "
             f"plain {plain_ms:.3f} ms | library {row['library_ms']} ms | "

@@ -9,7 +9,9 @@ f32 sums); the bf16 chains one bf16 ulp (2^-8 of a value) for each of
 their roundings — matmul_chain rounds once a round, merge_resplit_chain
 twice — because an f32 sum taken in another order can cross a bf16
 rounding boundary, and the orthonormal factors do not amplify the
-difference.
+difference. On the norm-keeping input (``b w = I`` exactly in bf16, with
++-1/sqrt(r) entries) every f32 sum is exact, so the chains agree bit for
+bit.
 """
 
 import jax.numpy as jnp
@@ -21,9 +23,11 @@ from ttnx.kernels.contraction import matmul_chain as j_matmul_chain
 from ttnx.kernels.contraction import merge_resplit_chain as j_chain
 from ttnx.kernels.contraction import two_site_merge as j_merge
 
-from ttnx_torch.entry import contraction_problem, matmul_ceiling_problem
+from ttnx_torch.entry import (contraction_problem, matmul_ceiling_problem,
+                              norm_keeping_contraction_problem)
 from ttnx_torch.kernels import dispatch
-from ttnx_torch.kernels.contraction import (matmul_chain, matmul_chain_plain,
+from ttnx_torch.kernels.contraction import (chain_route, matmul_chain,
+                                            matmul_chain_plain, merge_route,
                                             merge_resplit_chain,
                                             merge_resplit_chain_plain,
                                             two_site_merge,
@@ -94,6 +98,54 @@ def test_merge_resplit_chain_plain_vs_ttnx_kernel(name, tol):
     _close(got, ref, tol)
 
 
+@pytest.mark.parametrize("r,n", [(16, 2), (16, 3), (64, 2)])
+def test_norm_keeping_problem_b_w_is_the_identity(r, n):
+    """``b w = I`` exactly in bf16; ``b`` holds +-H/sqrt(r) in r of its n r
+    columns, distinct per problem; ``w = b^T``."""
+    p = norm_keeping_contraction_problem(torch.device("cpu"), batch=3, r=r,
+                                         n=n, seed=5)
+    a, b, w = p["a"], p["b"], p["w"]
+    assert a.shape == (3, r * n, r) and b.shape == (3, r, n * r)
+    assert all(t.dtype == torch.bfloat16 for t in (a, b, w))
+    assert torch.equal(w, b.transpose(1, 2))
+    eye = torch.eye(r).expand(3, r, r)
+    assert torch.equal(torch.bmm(b.float(), w.float()), eye)
+    used = (b != 0).any(dim=1)
+    assert (used.sum(dim=1) == r).all()
+    assert not torch.equal(b[0], b[1])
+    assert torch.equal(b.float().abs().sum(dim=1)[used],
+                       torch.full((3 * r,), float(np.sqrt(r))))
+
+
+@pytest.mark.parametrize("B,r,n,iters", [(4, 16, 2, 16), (2, 16, 3, 16)])
+def test_norm_keeping_chain_plain_vs_ttnx_kernel(B, r, n, iters):
+    """On the norm-keeping input the plain chain equals the ttnx kernel in
+    interpret mode bit for bit, and the iterate keeps its norm (1 %)."""
+    p = norm_keeping_contraction_problem(torch.device("cpu"), batch=B, r=r,
+                                         n=n, seed=B + n)
+    ja, jb, jw = (jnp.asarray(p[k].float().numpy()).astype(jnp.bfloat16)
+                  for k in "abw")
+    ref = j_chain(ja, jb, jw, iters=iters, block_b=B, interpret=True)
+    got = merge_resplit_chain(p["a"], p["b"], p["w"], iters=iters)
+    assert got.dtype == torch.bfloat16
+    assert np.array_equal(got.float().numpy(),
+                          np.asarray(ref.astype(jnp.float32)))
+    ratio = float(got.float().norm() / p["a"].float().norm())
+    assert abs(ratio - 1.0) <= 1e-2, ratio
+    assert not torch.equal(got, p["a"])  # the roundings moved it
+
+
+def test_norm_keeping_chain_keeps_its_norm_over_the_bench_iterations():
+    """At the bench's r = 64 and 2048 iterations (small batch) the norm
+    stays within 1 % while the iterate drifts by its roundings only."""
+    p = norm_keeping_contraction_problem(torch.device("cpu"), batch=2)
+    got = merge_resplit_chain_plain(p["a"], p["b"], p["w"], iters=2048)
+    a = p["a"].float()
+    assert abs(float(got.float().norm() / a.norm()) - 1.0) <= 1e-2
+    drift = float((got.float() - a).norm() / a.norm())
+    assert 0.0 < drift < 1e-2, drift
+
+
 def test_chain_plain_versions_round_where_the_kernels_do():
     """A bf16 chain of one round equals the f32 products of the same
     values rounded once (matmul_chain) and twice (merge_resplit_chain)."""
@@ -162,6 +214,23 @@ def test_contraction_wrappers_check_types_and_shapes():
         merge_resplit_chain(x, torch.zeros((2, 4, 8)), torch.zeros((2, 4, 4)))
     with pytest.raises(ValueError):
         two_site_merge(x, torch.zeros((2, 3, 4)))
+
+
+def test_kernel_routes_follow_dtype_and_shape():
+    """B11 and B13 choose their CUDA kernel by dtype and shape alone: the
+    bench shapes take the tensor-core designs, larger shapes the wmma
+    kernels, float32 the CUDA-core kernels."""
+    bf, f32 = torch.bfloat16, torch.float32
+    assert chain_route(bf, 64, 128) == "wgmma"
+    assert chain_route(bf, 20, 60) == "wgmma"
+    assert chain_route(bf, 64, 512) == "wgmma"
+    assert chain_route(bf, 80, 160) == "wmma"
+    assert chain_route(bf, 64, 576) == "wmma"
+    assert chain_route(f32, 64, 128) == "f32"
+    assert merge_route(bf, 128, 64, 128) == "mma"
+    assert merge_route(bf, 20, 12, 28) == "mma"
+    assert merge_route(bf, 256, 192, 256) == "wmma"
+    assert merge_route(f32, 128, 64, 128) == "f32"
 
 
 def test_cpu_tensors_take_the_plain_versions():

@@ -13,15 +13,21 @@ get distinct problems per batch element. Tolerances: 1e-10 in float64;
 B12 (CG, BiCGStab and Lanczos amplify the rounding of f32 products, and
 the chains repeat it); relative to the largest entry. bf16 chains: one
 bf16 ulp (2^-8) for each rounding of the chain, where f32 sums taken in
-another order cross a rounding boundary.
+another order cross a rounding boundary. B11 and B13 are held on every
+kernel route their wrappers choose by shape (``route``): B11 ``wgmma``
+(r <= 64) and ``wmma`` (r = 80), B13 ``mma`` (16-byte rows and ragged
+ones) and ``wmma`` (the largest shape); B11 also at the bench's 2048
+iterations on the norm-keeping input (rel Frobenius 1e-3, norm within 1 %).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from ttnx_torch.entry import batched_als_problem, flat_spectrum_stack
-from ttnx_torch.kernels.contraction import (matmul_chain, matmul_chain_plain,
+from ttnx_torch.entry import (batched_als_problem, flat_spectrum_stack,
+                              norm_keeping_contraction_problem)
+from ttnx_torch.kernels.contraction import (chain_route, matmul_chain,
+                                            matmul_chain_plain, merge_route,
                                             merge_resplit_chain,
                                             merge_resplit_chain_plain,
                                             two_site_merge,
@@ -356,7 +362,8 @@ def _mm_tol(dtype, roundings):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", MM_TYPES)
-@pytest.mark.parametrize("B,m,k,n", [(5, 40, 24, 56), (3, 128, 64, 128)])
+@pytest.mark.parametrize("B,m,k,n", [(5, 40, 24, 56), (3, 128, 64, 128),
+                                     (3, 20, 12, 28), (7, 33, 17, 30)])
 def test_two_site_merge_kernel(cuda, dtype, B, m, k, n):
     rng = np.random.default_rng(m)
     a, b = _on(cuda, dtype, rng.standard_normal((B, m, k)),
@@ -365,7 +372,22 @@ def test_two_site_merge_kernel(cuda, dtype, B, m, k, n):
     got = two_site_merge(a, b)
     torch.cuda.synchronize()
     assert two_site_merge.launches == before + 1
+    assert two_site_merge.route == merge_route(dtype, m, k, n)
     assert got.dtype == torch.float32
+    _close(got, two_site_merge_plain(a, b), 1e-5)
+
+
+@pytest.mark.cuda
+def test_two_site_merge_kernel_wmma_route(cuda):
+    """bf16 operands too large for the mma route's shared memory."""
+    rng = np.random.default_rng(3)
+    a, b = _on(cuda, torch.bfloat16, rng.standard_normal((2, 256, 192)),
+               rng.standard_normal((2, 192, 256)))
+    before = two_site_merge.launches
+    got = two_site_merge(a, b)
+    torch.cuda.synchronize()
+    assert two_site_merge.launches == before + 1
+    assert two_site_merge.route == "wmma"
     _close(got, two_site_merge_plain(a, b), 1e-5)
 
 
@@ -391,7 +413,7 @@ def test_matmul_chain_kernel(cuda, dtype, B, m, k):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", MM_TYPES)
-@pytest.mark.parametrize("B,r,n", [(5, 20, 3), (3, 64, 2)])
+@pytest.mark.parametrize("B,r,n", [(5, 20, 3), (3, 64, 2), (4, 48, 2)])
 def test_merge_resplit_chain_kernel(cuda, dtype, B, r, n):
     rng = np.random.default_rng(r)
     a, b, w = _on(cuda, dtype, 0.1 * rng.standard_normal((B, r * n, r)),
@@ -401,5 +423,31 @@ def test_merge_resplit_chain_kernel(cuda, dtype, B, r, n):
     got = merge_resplit_chain(a, b, w, iters=8)
     torch.cuda.synchronize()
     assert merge_resplit_chain.launches == before + 1
+    assert merge_resplit_chain.route == chain_route(dtype, r, n * r)
     _close(got.float(), merge_resplit_chain_plain(a, b, w, iters=8).float(),
            _mm_tol(dtype, 16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,r,n", [(2, 64, 8), (2, 80, 2)])
+def test_merge_resplit_chain_kernel_bf16_edges(cuda, B, r, n):
+    """bf16 shapes at the edges of the wgmma route (n r = 512) and past it
+    (r = 80, the wmma route); too large for the f32 kernel."""
+    test_merge_resplit_chain_kernel(cuda, torch.bfloat16, B, r, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,r,n", [(64, 64, 2), (16, 16, 3)])
+def test_merge_resplit_chain_kernel_norm_keeping(cuda, B, r, n):
+    """The bench's 2048 iterations on an input whose iterate keeps its
+    norm (b w = I exactly in bf16): every iteration counts."""
+    p = norm_keeping_contraction_problem(cuda, batch=B, r=r, n=n, seed=r)
+    before = merge_resplit_chain.launches
+    got = merge_resplit_chain(p["a"], p["b"], p["w"], iters=2048)
+    torch.cuda.synchronize()
+    assert merge_resplit_chain.launches == before + 1
+    assert merge_resplit_chain.route == "wgmma"
+    ref = merge_resplit_chain_plain(p["a"], p["b"], p["w"], iters=2048)
+    got, ref, a = got.float(), ref.float(), p["a"].float()
+    assert float((got - ref).norm() / ref.norm()) <= 1e-3
+    assert abs(float(got.norm() / a.norm()) - 1.0) <= 1e-2

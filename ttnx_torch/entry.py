@@ -23,7 +23,10 @@ convection–diffusion generator through the dense-K BiCGStab (kernel B10),
 with ``dense_cn_reference`` its sparse-LU oracle;
 ``contraction_problem(device)`` and ``matmul_ceiling_problem(device)``
 build the inputs of the rank-64 core contraction chain (kernels B11, B13)
-and its matmul ceiling (B12) as ``bench.py`` does.
+and its matmul ceiling (B12) as ``bench.py`` does;
+``norm_keeping_contraction_problem(device)`` is a chain input whose iterate
+keeps its norm, so B11 can be held to its plain version at the bench's
+2048 iterations.
 """
 
 from __future__ import annotations
@@ -45,7 +48,8 @@ __all__ = ["entry", "flagship_cn_step", "three_mode_state",
            "dense_xxx_groundstate", "tdvp_problem", "convection_operator",
            "convection_cn_step",
            "convection_cn_operators", "dense_cn_reference",
-           "contraction_problem", "matmul_ceiling_problem"]
+           "contraction_problem", "norm_keeping_contraction_problem",
+           "matmul_ceiling_problem"]
 
 
 def flagship_cn_step(device, rmax: int = 16, d: int = 12, h: float = 1e-9,
@@ -265,6 +269,42 @@ def contraction_problem(device, batch: int = 4096, r: int = 64, n: int = 2,
     b = np.swapaxes(np.linalg.qr(rng.standard_normal((batch, n * r, r)))[0],
                     1, 2)
     w = np.linalg.qr(rng.standard_normal((batch, n * r, r)))[0]
+    return {k: torch.as_tensor(np.ascontiguousarray(v)).to(device, dtype)
+            for k, v in (("a", a), ("b", b), ("w", w))}
+
+
+def _sylvester_hadamard(r: int) -> np.ndarray:
+    """The ``r x r`` Sylvester Hadamard matrix (``r`` a power of two)."""
+    if r < 1 or r & (r - 1):
+        raise ValueError(f"r={r} is not a power of two")
+    h = np.ones((1, 1))
+    while h.shape[0] < r:
+        h = np.block([[h, h], [h, -h]])
+    return h
+
+
+def norm_keeping_contraction_problem(device, batch: int = 4096, r: int = 64,
+                                     n: int = 2, dtype=torch.bfloat16,
+                                     seed: int = 0):
+    """Inputs of the contraction chain whose iterate keeps its norm: ``a
+    (batch, r n, r)`` (0.1 N(0, 1)) as in :func:`contraction_problem`, ``b
+    (batch, r, n r)`` holding ``H / sqrt(r)`` (``H`` the Sylvester Hadamard
+    matrix) in ``r`` of its ``n r`` columns, chosen and signed per problem
+    from numpy's ``default_rng(seed)``, zero elsewhere, and ``w = b^T``.
+    ``b w = I``, exactly in bf16 where ``1/sqrt(r)`` is a power of two (r =
+    16, 64): the chain then moves the iterate only by its roundings, so a
+    kernel can be held to its plain version over thousands of iterations
+    (the bench input decays to zero). Returns a dict of the three."""
+    rng = np.random.default_rng(seed)
+    a = rng.standard_normal((batch, r * n, r)) * 0.1
+    cols = np.argsort(rng.random((batch, n * r)), axis=1)[:, :r]
+    signs = rng.choice((-1.0, 1.0), size=(batch, 1, r))
+    b = np.zeros((batch, r, n * r))
+    vals = np.broadcast_to(_sylvester_hadamard(r) / np.sqrt(r),
+                           (batch, r, r))
+    np.put_along_axis(b, np.broadcast_to(cols[:, None, :], (batch, r, r)),
+                      vals * signs, axis=2)
+    w = np.swapaxes(b, 1, 2)
     return {k: torch.as_tensor(np.ascontiguousarray(v)).to(device, dtype)
             for k, v in (("a", a), ("b", b), ("w", w))}
 

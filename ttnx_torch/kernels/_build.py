@@ -15,7 +15,7 @@ entry point takes ``c_void_p`` for pointers and the stream, ``c_int`` for
 sizes, and returns ``cudaGetLastError()`` after its launches. Each entry
 point exists for the dtype suffixes its signature lists: ``f32`` and
 ``f64`` for the linear-algebra kernels, ``bf16`` and ``f32`` for the
-contraction kernels.
+contraction kernels, ``bf16`` alone for their tensor-core routes.
 """
 
 from __future__ import annotations
@@ -70,10 +70,13 @@ _SIGNATURES = {
                        REAL),
     # a, b, out, B, m, k, n, stream
     "two_site_merge": ([P, P, P, I, I, I, I, P], MM),
+    "two_site_merge_mma": ([P, P, P, I, I, I, I, P], ("bf16",)),
     # x, w, out, B, m, k, iters, stream
     "matmul_chain": ([P, P, P, I, I, I, I, P], MM),
     # a, b, w, out, B, m, r, n, iters, stream
     "merge_resplit_chain": ([P, P, P, P, I, I, I, I, I, P], MM),
+    "merge_resplit_chain_wgmma": ([P, P, P, P, I, I, I, I, I, P],
+                                  ("bf16",)),
 }
 # size queries (no stream, no dtype suffix) -> argument types; return
 # c_longlong

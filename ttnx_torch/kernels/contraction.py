@@ -18,6 +18,17 @@ products of the operands and round where the kernels do. The TPU kernels'
 ``block_b`` and ``unroll`` only set their VMEM tiling and have no
 counterpart here. The callers pass orthonormal ``b``, ``w`` so the
 normalization-free chains stay bounded.
+
+B11 and B13 pick their kernel by dtype and shape, never on a failure
+(:func:`chain_route`, :func:`merge_route`); the route of the last launch
+is kept in the wrapper's ``route`` attribute:
+
+* B11 ``"wgmma"`` — bf16 with ``r <= 64`` and ``n <= 512`` (the iterate
+  in registers, wgmma); ``"wmma"`` — other bf16 shapes; ``"f32"`` — IEEE
+  f32 on the CUDA cores.
+* B13 ``"mma"`` — bf16 whose operands and staging rows fit one block's
+  shared memory (cp.async, mma.sync, whole-row stores); ``"wmma"`` —
+  larger bf16; ``"f32"``.
 """
 
 from __future__ import annotations
@@ -29,7 +40,36 @@ from ttnx_torch.kernels.dispatch import counted, require_mm_type, use_kernel
 
 __all__ = ["two_site_merge", "two_site_merge_plain", "matmul_chain",
            "matmul_chain_plain", "merge_resplit_chain",
-           "merge_resplit_chain_plain"]
+           "merge_resplit_chain_plain", "chain_route", "merge_route"]
+
+SMEM_BLOCK = 232448  # shared memory one block can use on the H100
+CHAIN_WGMMA_MAX_R, CHAIN_WGMMA_MAX_N = 64, 512
+
+
+def _up16(x: int) -> int:
+    return (x + 15) // 16 * 16
+
+
+def chain_route(dtype, r: int, n: int) -> str:
+    """The kernel of :func:`merge_resplit_chain` for ``a (B, m, r)``, ``b
+    (B, r, n)``: ``"wgmma"``, ``"wmma"`` or ``"f32"``."""
+    if dtype == torch.float32:
+        return "f32"
+    if r <= CHAIN_WGMMA_MAX_R and n <= CHAIN_WGMMA_MAX_N:
+        return "wgmma"
+    return "wmma"
+
+
+def merge_route(dtype, m: int, k: int, n: int) -> str:
+    """The kernel of :func:`two_site_merge` for ``(B, m, k) @ (B, k, n)``:
+    ``"mma"`` where A and B (bf16, padded to 16, rows skewed by 8 values)
+    and the 8 warps' 16 x 72 f32 staging rows fit one block, else
+    ``"wmma"``; ``"f32"``."""
+    if dtype == torch.float32:
+        return "f32"
+    operands = _up16(m) * (_up16(k) + 8) + _up16(k) * (_up16(n) + 8)
+    staging = 8 * 16 * 72
+    return "mma" if 2 * operands + 4 * staging <= SMEM_BLOCK else "wmma"
 
 
 def _bmm32(x, y):
@@ -59,10 +99,16 @@ def two_site_merge(a, b):
     n = b.shape[2]
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty((B, m, n), dtype=torch.float32, device=a.device)
-    _build.call("two_site_merge", a.dtype, a.data_ptr(), b.data_ptr(),
+    route = merge_route(a.dtype, m, k, n)
+    _build.call("two_site_merge_mma" if route == "mma"
+                else "two_site_merge", a.dtype, a.data_ptr(), b.data_ptr(),
                 out.data_ptr(), B, m, k, n)
     two_site_merge.launches += 1
+    two_site_merge.route = route
     return out
+
+
+two_site_merge.route = None
 
 
 def matmul_chain_plain(x, w, iters: int = 8):
@@ -109,7 +155,14 @@ def merge_resplit_chain(a, b, w, iters: int = 8):
         return merge_resplit_chain_plain(a, b, w, iters)
     a, b, w = a.contiguous(), b.contiguous(), w.contiguous()
     out = torch.empty_like(a)
-    _build.call("merge_resplit_chain", a.dtype, a.data_ptr(), b.data_ptr(),
-                w.data_ptr(), out.data_ptr(), B, m, r, n, int(iters))
+    route = chain_route(a.dtype, r, n)
+    _build.call("merge_resplit_chain_wgmma" if route == "wgmma"
+                else "merge_resplit_chain", a.dtype, a.data_ptr(),
+                b.data_ptr(), w.data_ptr(), out.data_ptr(), B, m, r, n,
+                int(iters))
     merge_resplit_chain.launches += 1
+    merge_resplit_chain.route = route
     return out
+
+
+merge_resplit_chain.route = None
