@@ -17,7 +17,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    u_s plus a seeded perturbation inside the masks), B7 whole on distinct
    flat-spectrum problems (ROADMAP C: on u_s, whose bond spectrum falls to
    rounding level, its Newton-Schulz gauge is set by rounding noise), plus
-   one B7 case with cg_refine=2, cg_polish=2 at R = 32.
+   two B7 cases at R = 32: cg_refine=2, cg_polish=2 and cg_polish=2. Each
+   B7 line names the kernel route the wrapper chose (sweep_route: "site"
+   for f32 at R = 64 and 32 without a refine stage, else "folded").
 4. Main path: the d=12 Crank-Nicolson step at ranks 16, 32 and 64 (f32,
    16 warm CG iterations) on a three-mode eigenstate: the 8-step trajectory
    against the closed form (rel <= 1e-3), the implicit residual (<= 1e-2),
@@ -32,7 +34,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    calls after a warm-up) through the kernels and through the plain
    versions, element 0's residual against the exact tridiagonal operator
    (<= 1e-2) and the kernel-against-plain agreement of its represented
-   vector (<= 1e-4).
+   vector (<= 1e-4); the sweep_pair_fused line names B7's route and its
+   share of its bound at B = 512.
 3c. DMRG kernels: B8 (operator-only env chain, right and left) on the
    inputs one dmrg_eig_sweep gives it at R = 16 (d = 10) and R = 64
    (d = 12), and B9 (fused Lanczos, M = 1024, iters 8 and 24) on a seeded
@@ -81,7 +84,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    iterations on the norm-keeping input.
 
 The last two lines are a JSON summary of the kernels (13 rows: errors,
-times, bound, library time) and the device line ``{"ok": true, "device":
+times, bound, library time; ``kernel_route`` the wrapper's route where it
+has more than one) and the device line ``{"ok": true, "device":
 {...}}``. Without a CUDA device it exits non-zero and prints no result.
 """
 
@@ -458,6 +462,7 @@ def hold(name, rmax, dtype, args, kwargs, reps=10, repeats=5, tag="",
     kernel, plain = wrappers()[name]
     tol = TOL[dtype] if tol is None else tol
     got = kernel(*args, **kwargs)
+    route = getattr(kernel, "route", None)
     ref = plain(*args, **kwargs)
     torch.cuda.synchronize()
     abs_err, rel_err = compare(got, ref)
@@ -466,7 +471,6 @@ def hold(name, rmax, dtype, args, kwargs, reps=10, repeats=5, tag="",
     big = max((a for a in args if torch.is_tensor(a)), key=torch.numel)
     shape = "x".join(str(s) for s in big.shape)
     ok = rel_err <= tol
-    route = getattr(kernel, "route", None)
     log(f"kernel {KERNELS[name][0]} {name:25s} r{rmax:<3d} "
         f"{str(dtype)[6:]:8s} in {shape:16s}{tag} max_rel_err "
         f"{rel_err:.3e} (<= {tol:.2e}) max_abs_err {abs_err:.3e} | kernel "
@@ -478,7 +482,7 @@ def hold(name, rmax, dtype, args, kwargs, reps=10, repeats=5, tag="",
             f"version, rel err {rel_err:.3e} > {tol:.2e}")
     return dict(name=name, rmax=rmax, dtype=dtype, abs_err=abs_err,
                 rel_err=rel_err, ms=ms, plain_ms=plain_ms, tag=tag,
-                work=work(name, args, kwargs, got))
+                work=work(name, args, kwargs, got), route=route)
 
 
 def phase_kernels(device):
@@ -548,6 +552,9 @@ def phase_batched_kernels(device):
                 rows.append(hold("als_fwd_bwd_fused_batched", rmax, dtype,
                                  sweep, dict(cg_refine=2, cg_polish=2),
                                  reps=1, repeats=3, tag=" refine2 polish2"))
+                rows.append(hold("als_fwd_bwd_fused_batched", rmax, dtype,
+                                 sweep, dict(cg_polish=2), reps=1,
+                                 repeats=3, tag=" polish2"))
     return rows
 
 
@@ -693,8 +700,17 @@ def phase_batched_path(device):
                       / np.linalg.norm(x0))
         gflops = BATCH * als_sweeps_flops(D, 64, A.shape[1], 64,
                                           cg_iters=applies) / sec / 1e9
+        kernel = ""
+        if route == "sweep_pair_fused":
+            name = "als_fwd_bwd_fused_batched"
+            bound_ms, by = bound(dict(work=work(name, (A, bb, xb, masks), {},
+                                                out)))
+            b7 = als_sweep_fused.als_fwd_bwd_fused_batched.route
+            kernel = (f" | B7 route {b7}: {bound_ms / (sec * 1e3):.3f} of "
+                      f"its {by} bound {bound_ms:.3f} ms")
         log(f"batched {route} d={D} r64 B={BATCH} f32: {BATCH / sec:.2f} "
-            f"solves/s ({gflops:.2f} GFLOP/s, {sec * 1e3:.1f} ms/call) | "
+            f"solves/s ({gflops:.2f} GFLOP/s, {sec * 1e3:.1f} ms/call)"
+            f"{kernel} | "
             f"plain {BATCH / plain_sec:.2f} solves/s ({plain_sec * 1e3:.1f} "
             f"ms/call) | residual[0] {res:.3e} (<= 1e-2) | kernel vs plain "
             f"vector[0] rel {agree:.3e} (<= 1e-4) | launches/call "
@@ -1186,7 +1202,7 @@ def phase_contraction_path(device):
                    library_ms=(library_bmm_ms(*args)
                                if name == "two_site_merge" else None))
         bound_ms, by = bound(row)
-        route = getattr(wrappers()[name][0], "route", None)
+        route = row["route"] = getattr(wrappers()[name][0], "route", None)
         log(f"contraction {KERNELS[name][0]} {name} bf16 "
             f"{tuple(args[0].shape)} {kw}"
             f"{f' route {route}' if route else ''}: {ms:.3f} ms "
@@ -1218,7 +1234,10 @@ def summarize(rows, path_rows, counts):
             r["abs_err"] = next(h["abs_err"] for h in held
                                 if h["dtype"] == torch.bfloat16)
         bound_ms, by = bound(r)
+        if r.get("route") == "site":
+            source = "ttnx_torch/csrc/als_sweep_site.cu"
         summary.append({"name": f"{label} {name}", "route": "cuda",
+                        "kernel_route": r.get("route"),
                         "source": source, "replaces": replaces,
                         "launches": counts[name],
                         "max_abs_err": r["abs_err"], "ms": r["ms"],

@@ -30,7 +30,8 @@ from ttnx_torch.core.decomp import ttv_to_tensor as t_dense
 from ttnx_torch.entry import batched_als_problem, flat_spectrum_stack
 from ttnx_torch.kernels import dispatch
 from ttnx_torch.kernels.als_sweep_fused import (als_fwd_bwd_fused_batched,
-                                                als_fwd_bwd_plain)
+                                                als_fwd_bwd_plain,
+                                                sweep_route)
 from ttnx_torch.kernels.env_chain import (env_chain_batched_plain,
                                           env_chain_fused_batched)
 from ttnx_torch.kernels.local_cg_mf import (cg_matfree_batched_plain,
@@ -234,6 +235,33 @@ def test_sweep_pair_gauge_fault_on_rank_deficient_guess():
 
     assert rel(*fused) > 1e-3
     assert rel(vec(qr[0]), vec(qr[1])) < 1e-12
+
+
+@pytest.mark.parametrize("dtype,R,n,RA,refine,route", [
+    (torch.float32, 64, 2, 4, 0, "site"),
+    (torch.float32, 32, 2, 4, 0, "site"),
+    (torch.float64, 64, 2, 4, 0, "folded"),
+    (torch.float32, 40, 2, 4, 0, "folded"),
+    (torch.float32, 64, 2, 6, 0, "folded"),
+    (torch.float32, 64, 3, 4, 0, "folded"),
+    (torch.float32, 32, 2, 4, 2, "folded"),
+])
+def test_sweep_route_by_dtype_shape_refine(dtype, R, n, RA, refine, route):
+    """B7's kernel is chosen from dtype, (R, n, RA) and cg_refine alone."""
+    assert sweep_route(dtype, R, n, RA, refine) == route
+
+
+def test_cpu_tensors_at_site_shape_take_plain():
+    """f32 at the site kernel's shape on the CPU: the plain version, no
+    launch, the recorded route untouched."""
+    A, b, x, masks, _ = _flat_problem(8, B=1, d=3, R=32)
+    args = (_t(A, F32), _t(b, F32), _t(x, F32), _t(masks, F32))
+    route = als_fwd_bwd_fused_batched.route
+    before = als_fwd_bwd_fused_batched.launches
+    assert torch.equal(als_fwd_bwd_fused_batched(*args, cg_iters=2),
+                       als_fwd_bwd_plain(*args, cg_iters=2))
+    assert als_fwd_bwd_fused_batched.launches == before
+    assert als_fwd_bwd_fused_batched.route == route
 
 
 def test_sweep_pair_requires_square_rhs_rank():

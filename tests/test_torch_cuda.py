@@ -18,6 +18,9 @@ kernel route their wrappers choose by shape (``route``): B11 ``wgmma``
 (r <= 64) and ``wmma`` (r = 80), B13 ``mma`` (16-byte rows and ragged
 ones) and ``wmma`` (the largest shape); B11 also at the bench's 2048
 iterations on the norm-keeping input (rel Frobenius 1e-3, norm within 1 %).
+B7 is held on both of its routes: ``site`` (f32 at R = 64 and 32, with and
+without the polish stage) and ``folded`` (f64, the ragged R = 40 stack and
+the bf16 refine stage).
 """
 
 import numpy as np
@@ -33,7 +36,8 @@ from ttnx_torch.kernels.contraction import (chain_route, matmul_chain,
                                             two_site_merge,
                                             two_site_merge_plain)
 from ttnx_torch.kernels.als_sweep_fused import (als_fwd_bwd_fused_batched,
-                                                als_fwd_bwd_plain)
+                                                als_fwd_bwd_plain,
+                                                sweep_route)
 from ttnx_torch.kernels.env_chain import (env_chain_A_fused,
                                           env_chain_A_plain,
                                           env_chain_batched_plain,
@@ -218,6 +222,50 @@ def test_sweep_pair_kernel(cuda, dtype, kw):
     kw = dict(kw, cg_iters=12, ns_iters=(16, 6))
     got = als_fwd_bwd_fused_batched(*args, **kw)
     torch.cuda.synchronize()
+    assert als_fwd_bwd_fused_batched.route == "folded"
+    _close(got, als_fwd_bwd_plain(*args, **kw), _tol(dtype, loose=True))
+
+
+def _flat_sweep(dev, dtype, R, B=3, d=12, seed=19):
+    """B distinct flat-spectrum problems of the bench's heat operator at
+    full rank R (d = 12 reaches rank 64)."""
+    p = batched_als_problem(torch.device("cpu"), batch=1, rmax=R, d=d,
+                            dtype=torch.float64)
+    rng = np.random.default_rng(seed)
+    bb = np.stack([flat_spectrum_stack(rng, p["u_rks"], R) for _ in range(B)])
+    xb = bb + 0.3 * np.stack([flat_spectrum_stack(rng, p["u_rks"], R)
+                              for _ in range(B)])
+    return _on(dev, dtype, p["lhs_stack"].numpy(), bb, xb,
+               p["masks"].numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [64, 32])
+@pytest.mark.parametrize("polish", [0, 2])
+def test_sweep_pair_site_kernel(cuda, R, polish):
+    """The site-resident route (f32, (R, n, RA) = (R, 2, 4), no refine)
+    against the plain version at the bench's CG and gauge settings."""
+    args = _flat_sweep(cuda, torch.float32, R)
+    assert sweep_route(torch.float32, R, 2, 4, 0) == "site"
+    before = als_fwd_bwd_fused_batched.launches
+    got = als_fwd_bwd_fused_batched(*args, cg_polish=polish)
+    torch.cuda.synchronize()
+    assert als_fwd_bwd_fused_batched.launches == before + 1
+    assert als_fwd_bwd_fused_batched.route == "site"
+    _close(got, als_fwd_bwd_plain(*args, cg_polish=polish), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,R,kw", [
+    (torch.float64, 64, {}), (torch.float32, 32, dict(cg_refine=2))],
+    ids=["f64-r64", "f32-r32-refine"])
+def test_sweep_pair_folded_route_at_site_shapes(cuda, dtype, R, kw):
+    """At the site kernel's shapes, f64 and the bf16 refine stage keep PR
+    2's folded kernel."""
+    args = _flat_sweep(cuda, dtype, R, B=2)
+    got = als_fwd_bwd_fused_batched(*args, **kw)
+    torch.cuda.synchronize()
+    assert als_fwd_bwd_fused_batched.route == "folded"
     _close(got, als_fwd_bwd_plain(*args, **kw), _tol(dtype, loose=True))
 
 

@@ -14,8 +14,9 @@ never loads a stale library. The library is loaded with ``ctypes``; every
 entry point takes ``c_void_p`` for pointers and the stream, ``c_int`` for
 sizes, and returns ``cudaGetLastError()`` after its launches. Each entry
 point exists for the dtype suffixes its signature lists: ``f32`` and
-``f64`` for the linear-algebra kernels, ``bf16`` and ``f32`` for the
-contraction kernels, ``bf16`` alone for their tensor-core routes.
+``f64`` for the linear-algebra kernels, ``f32`` alone for B7's
+site-resident route, ``bf16`` and ``f32`` for the contraction kernels,
+``bf16`` alone for their tensor-core routes.
 """
 
 from __future__ import annotations
@@ -68,6 +69,9 @@ _SIGNATURES = {
     # cg_polish, ns1, ns2, stream
     "als_sweep_pair": ([P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
                        REAL),
+    # the same arguments; (R, n, RA) = (64, 2, 4) or (32, 2, 4), cg_refine 0
+    "als_sweep_site": ([P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
+                       ("f32",)),
     # a, b, out, B, m, k, n, stream
     "two_site_merge": ([P, P, P, I, I, I, I, P], MM),
     "two_site_merge_mma": ([P, P, P, I, I, I, I, P], ("bf16",)),
@@ -83,6 +87,7 @@ _SIGNATURES = {
 _QUERIES = {
     # d, R, RA, n -> scratch elements per problem of als_sweep_pair
     "als_sweep_pair_scratch": [I, I, I, I],
+    "als_sweep_site_scratch": [I, I, I, I],
 }
 
 _LIB = None

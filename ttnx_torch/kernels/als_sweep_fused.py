@@ -10,11 +10,23 @@ left envs), the backward mirror (rows orthogonalized, carried right envs)
 and the final site-0 core. The gauge is ``T = G^{1/2}`` (NS polar), not
 QR; represented vectors match ``als_sweeps_b(..., sweep_count=2)``.
 
-:func:`als_fwd_bwd_fused_batched` runs the pass through the Hopper kernel
-(``csrc/als_sweep_fused.cu``) for CUDA tensors and through
-:func:`als_fwd_bwd_plain` for CPU tensors. The plain version follows the
-TPU kernel body step by step in batched torch ops: no per-apply masking in
-the CG (the envs come from masked cores), the result re-masked once.
+:func:`als_fwd_bwd_fused_batched` runs the pass through a Hopper kernel
+for CUDA tensors and through :func:`als_fwd_bwd_plain` for CPU tensors.
+The kernel is chosen by dtype, shape and ``cg_refine`` alone, never on a
+failure (:func:`sweep_route`); the route of the last launch is kept in the
+wrapper's ``route`` attribute:
+
+* ``"site"`` — ``csrc/als_sweep_site.cu``: float32 at ``(R, n, RA)`` in
+  :data:`SITE_SHAPES` with ``cg_refine == 0``; the site's operators stay in
+  shared memory for its whole CG, every product a register-tiled GEMM
+  from shared memory.
+* ``"folded"`` — ``csrc/als_sweep_fused.cu`` (the MPO folded into the
+  right env, products through L2): float64, other shapes, and the bf16
+  refine stage, whose rounding points follow the TPU's folded form.
+
+The plain version follows the TPU kernel body step by step in batched
+torch ops: no per-apply masking in the CG (the envs come from masked
+cores), the result re-masked once.
 ``cg_refine`` CG iterations after the main loop take bf16-rounded operands
 with accumulation in the working type, then ``cg_polish`` full-precision
 ones, each stage restarted from the true residual.
@@ -27,7 +39,22 @@ import torch
 from ttnx_torch.kernels import _build
 from ttnx_torch.kernels.dispatch import counted, require_real, use_kernel
 
-__all__ = ["als_fwd_bwd_fused_batched", "als_fwd_bwd_plain"]
+__all__ = ["als_fwd_bwd_fused_batched", "als_fwd_bwd_plain", "sweep_route",
+           "SITE_SHAPES"]
+
+# (R, n, RA) the site-resident kernel is instantiated for: the bench's
+# rank-64 heat problem and the rank-32 check shape
+SITE_SHAPES = ((64, 2, 4), (32, 2, 4))
+
+
+def sweep_route(dtype, R: int, n: int, RA: int, cg_refine: int) -> str:
+    """The kernel of :func:`als_fwd_bwd_fused_batched`: ``"site"`` for
+    float32 at an instantiated shape without a refine stage, else
+    ``"folded"``."""
+    if (dtype == torch.float32 and (R, n, RA) in SITE_SHAPES
+            and cg_refine == 0):
+        return "site"
+    return "folded"
 
 
 def _bf16(t):
@@ -231,14 +258,20 @@ def als_fwd_bwd_fused_batched(A_stack, b_batch, x_batch, masks, *,
     A_stack, b_batch = A_stack.contiguous(), b_batch.contiguous()
     x_batch, masks = x_batch.contiguous(), masks.contiguous()
     out = torch.empty_like(x_batch)
-    per_problem = _build.query("als_sweep_pair_scratch", d, R, RA, n)
+    route = sweep_route(x_batch.dtype, R, n, RA, cg_refine)
+    entry = "als_sweep_site" if route == "site" else "als_sweep_pair"
+    per_problem = _build.query(f"{entry}_scratch", d, R, RA, n)
     scratch = torch.empty(B * per_problem, dtype=x_batch.dtype,
                           device=x_batch.device)
     ns1, ns2 = ns_iters
-    _build.call("als_sweep_pair", x_batch.dtype, A_stack.data_ptr(),
+    _build.call(entry, x_batch.dtype, A_stack.data_ptr(),
                 b_batch.data_ptr(), x_batch.data_ptr(), masks.data_ptr(),
                 out.data_ptr(), scratch.data_ptr(), B, d, R, RA, n,
                 int(cg_iters), int(cg_refine), int(cg_polish), int(ns1),
                 int(ns2))
     als_fwd_bwd_fused_batched.launches += 1
+    als_fwd_bwd_fused_batched.route = route
     return out
+
+
+als_fwd_bwd_fused_batched.route = None
