@@ -17,19 +17,24 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    u_s plus a seeded perturbation inside the masks), B7 whole on distinct
    flat-spectrum problems (ROADMAP C: on u_s, whose bond spectrum falls to
    rounding level, its Newton-Schulz gauge is set by rounding noise), plus
-   two B7 cases at R = 32: cg_refine=2, cg_polish=2 and cg_polish=2. Each
-   B7 line names the kernel route the wrapper chose (sweep_route: "site"
-   for f32 at R = 64 and 32 without a refine stage, else "folded").
+   two B7 cases at R = 32: cg_refine=2, cg_polish=2 and cg_polish=2; and
+   B5 at B = 512 on the inputs one als_sweeps_b call on phase 5's problem
+   gives it, with its share of its bound. Each B7 line names the kernel
+   route the wrapper chose (sweep_route: "site" for f32 at R = 64 and 32
+   without a refine stage, else "folded"), each B4/B5 line in phases 3
+   and 3b likewise (matfree_route: "resident" for f32 at R = 64 and 32,
+   else "streamed").
 4. Main path: the d=12 Crank-Nicolson step at ranks 16, 32 and 64 (f32,
    16 warm CG iterations) on a three-mode eigenstate: the 8-step trajectory
    against the closed form (rel <= 1e-3), the implicit residual (<= 1e-2),
    ms/step and GFLOP/s through the kernels and through the plain versions,
    agreement of the two 8-step states (rel <= 1e-4), and the kernel launch
    counts per step (B1 = 1, B2 = 1 right + 1 left, B3/B4 = 22/0 at rank 16,
-   0/22 at ranks 32 and 64).
+   0/22 at ranks 32 and 64, B4 on route "resident").
 5. Batched path: 512 rank-64 d=12 implicit heat solves (f32, no TF32)
    through both routes of the bench ladder, explicit_kernel (als_sweeps_b,
-   cg_fused, 16 warm CG iterations: B6 2 launches, B5 22) and
+   cg_fused, 16 warm CG iterations: B6 2 launches, B5 22 on route
+   "resident") and
    sweep_pair_fused (B7, one launch): solves/s and GFLOP/s (median of 3
    calls after a warm-up) through the kernels and through the plain
    versions, element 0's residual against the exact tridiagonal operator
@@ -555,7 +560,28 @@ def phase_batched_kernels(device):
                 rows.append(hold("als_fwd_bwd_fused_batched", rmax, dtype,
                                  sweep, dict(cg_polish=2), reps=1,
                                  repeats=3, tag=" polish2"))
+    args, kwargs = bench_batch_solve(device)
+    row = hold("cg_matfree_fused_batched", 64, torch.float32, args, kwargs,
+               reps=1, repeats=3, tag=f" B={BATCH}")
+    bound_ms, by = bound(row)
+    log(f"kernel B5 B={BATCH} route {row['route']}: {row['ms']:.3f} ms, "
+        f"{bound_ms / row['ms']:.3f} of its {by} bound {bound_ms:.4f} ms")
+    rows.append(row)
     return rows
+
+
+def bench_batch_solve(device):
+    """(args, kwargs) of B5's MIDDLE_SITE-th launch in one als_sweeps_b call
+    on phase 5's problem (B = BATCH, rmax 64, f32), recorded through the
+    plain versions."""
+    from ttnx_torch.entry import batched_als_problem
+    from ttnx_torch.solvers.als_scan_batched import als_sweeps_b
+
+    p = batched_als_problem(device, batch=BATCH, rmax=64, d=D, h=H_STEP)
+    seen = record_calls(lambda: als_sweeps_b(
+        p["lhs_stack"], p["b_batch"], p["x_batch"], p["masks"], 2,
+        cg_iters=CG_ITERS, solver="cg_fused"))
+    return seen["cg_matfree_fused_batched"][MIDDLE_SITE]
 
 
 def run_chain(step_fn, us, n):
@@ -581,6 +607,7 @@ def timed_chain(step_fn, us):
 
 def phase_main_path(device):
     from ttnx_torch.kernels.dispatch import launch_counts, reset_launch_counts
+    from ttnx_torch.kernels.local_cg_mf import cg_matfree_fused
     from ttnx_torch.utils.flops import cn_step_flops
 
     hg = 1.0 / (2 ** D + 1)
@@ -601,6 +628,9 @@ def phase_main_path(device):
         if per_step != want:
             raise RuntimeError(f"r{rmax}: launches per step {per_step}, "
                                f"expected {want}")
+        b4 = None if dense_k else cg_matfree_fused.route
+        if b4 not in (None, "resident"):
+            raise RuntimeError(f"r{rmax}: B4 took route {b4}, not resident")
         if one.shape != us.shape or not bool(torch.isfinite(one).all()):
             raise RuntimeError(f"r{rmax}: step output is not a finite "
                                f"{tuple(us.shape)} stack")
@@ -618,7 +648,7 @@ def phase_main_path(device):
             f"GFLOP/s) | plain {plain_ms:.3f} ms/step | traj rel "
             f"{rel:.3e} (<= 1e-3) residual {res:.3e} (<= 1e-2) | kernel vs "
             f"plain 8-step rel {agree:.3e} (<= 1e-4) | launches/step "
-            f"{per_step}")
+            f"{per_step}{f' | B4 route {b4}' if b4 else ''}")
         if not (np.isfinite(rel) and rel <= 1e-3 and res <= 1e-2
                 and agree <= 1e-4):
             raise RuntimeError(f"cn r{rmax} failed its gates: rel={rel:.3e} "
@@ -649,7 +679,7 @@ def phase_batched_path(device):
     counts of each route's first call."""
     from ttnx_torch.core.decomp import ttv_to_tensor
     from ttnx_torch.entry import batched_als_problem
-    from ttnx_torch.kernels import als_sweep_fused
+    from ttnx_torch.kernels import als_sweep_fused, local_cg_mf
     from ttnx_torch.kernels.dispatch import launch_counts, reset_launch_counts
     from ttnx_torch.solvers.als_scan import unpack_tt
     from ttnx_torch.solvers.als_scan_batched import als_sweeps_b
@@ -686,6 +716,9 @@ def phase_batched_path(device):
             raise RuntimeError(f"{route}: launches per call {counts}, "
                                f"expected {want}")
         route_counts[route] = counts
+        b5 = local_cg_mf.cg_matfree_fused_batched.route
+        if route == "explicit_kernel" and b5 != "resident":
+            raise RuntimeError(f"{route}: B5 took route {b5}, not resident")
         sec, out = timed_calls(run)
         with plain_versions():
             plain_sec, plain_out = timed_calls(run)
@@ -700,7 +733,7 @@ def phase_batched_path(device):
                       / np.linalg.norm(x0))
         gflops = BATCH * als_sweeps_flops(D, 64, A.shape[1], 64,
                                           cg_iters=applies) / sec / 1e9
-        kernel = ""
+        kernel = f" | B5 route {b5}" if route == "explicit_kernel" else ""
         if route == "sweep_pair_fused":
             name = "als_fwd_bwd_fused_batched"
             bound_ms, by = bound(dict(work=work(name, (A, bb, xb, masks), {},
@@ -1218,24 +1251,29 @@ def phase_contraction_path(device):
 
 def summarize(rows, path_rows, counts):
     """One JSON row per kernel at the type and rank where its path runs
-    it: f32 at rank 64 (B3, B9, B10 at 16; B9 the sweep's own K at iters
-    8, B10 the convection step's K), B11-B13 the bf16 contraction path
-    with the error of the bf16 comparison at 8 iterations."""
+    it: f32 at rank 64 (B3, B9, B10 at 16; B5 at B = BATCH; B9 the sweep's
+    own K at iters 8, B10 the convection step's K), B11-B13 the bf16
+    contraction path with the error of the bf16 comparison at 8
+    iterations."""
     pick = {"cg_solve_fused": 16, "lanczos_fused": 16,
             "bicgstab_solve_fused": CONV_RMAX}
+    tag = {"cg_matfree_fused_batched": f" B={BATCH}"}  # the path's batch
     summary = []
     for name, (label, _, source, replaces) in KERNELS.items():
         held = [r for r in rows if r["name"] == name]
         r = next((r for r in path_rows if r["name"] == name), None)
         if r is None:
             r = next(r for r in held if r["dtype"] == torch.float32
-                     and r["rmax"] == pick.get(name, 64))
+                     and r["rmax"] == pick.get(name, 64)
+                     and r["tag"] == tag.get(name, r["tag"]))
         else:
             r["abs_err"] = next(h["abs_err"] for h in held
                                 if h["dtype"] == torch.bfloat16)
         bound_ms, by = bound(r)
         if r.get("route") == "site":
             source = "ttnx_torch/csrc/als_sweep_site.cu"
+        if r.get("route") == "resident":
+            source = "ttnx_torch/csrc/local_cg_site.cu"
         summary.append({"name": f"{label} {name}", "route": "cuda",
                         "kernel_route": r.get("route"),
                         "source": source, "replaces": replaces,

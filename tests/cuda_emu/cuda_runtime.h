@@ -1,8 +1,8 @@
-// A CPU stand-in for the parts of cuda_runtime.h that
-// ttnx_torch/csrc/als_sweep_site.cu uses, so that its kernel runs on the
-// CPU under tests/cuda_emu/emulate_site.cpp: one std::thread per CUDA
-// thread, __syncthreads a block-wide std::barrier, __shfl_xor_sync an
-// exchange through a per-warp slot array between two warp barriers.
+// A CPU stand-in for the parts of cuda_runtime.h that the site-resident
+// kernels (ttnx_torch/csrc/als_sweep_site.cu, local_cg_site.cu and their
+// site_engine.cuh) use, so that they run on the CPU under
+// tests/cuda_emu/emulate_site.cpp and emulate_matfree.cpp. The runtime
+// half (threads and barriers) is emu_block.h.
 #pragma once
 #include <cmath>
 #include <cstddef>

@@ -1,38 +1,21 @@
 // Runs the site-resident B7 kernel (ttnx_torch/csrc/als_sweep_site.cu) on
 // the CPU: 512 threads a block, the blocks one after another.
 //
-//   g++ -std=c++20 -O1 -I tests/cuda_emu -DSITE_SOURCE=<site.cpp> \
-//       tests/cuda_emu/emulate_site.cpp -o emulate_site -lpthread
+//   g++ -std=c++20 -O1 -I tests/cuda_emu -I ttnx_torch/csrc \
+//       -DSITE_SOURCE=<site.cpp> tests/cuda_emu/emulate_site.cpp \
+//       -o emulate_site -lpthread
 //   emulate_site DIR B d R cg_iters cg_polish ns1 ns2
 //
 // SITE_SOURCE is the kernel source with its one launch expression
 // removed (the test does that). DIR holds A.bin, b.bin, x.bin, m.bin
 // (float32: the MPO stack, right-hand sides, guesses and masks, n = 2,
 // RA = 4); the result is written to DIR/out.bin.
-#include <barrier>
 #include <cstdio>
 #include <cstdlib>
 #include <string>
-#include <thread>
 #include <vector>
 
-#include "cuda_runtime.h"
-
-thread_local emu_dim3 threadIdx;
-emu_dim3 blockIdx;
-static std::barrier<>* block_barrier;
-static std::barrier<>* warp_barrier[16];
-static float warp_slot[16][32];
-
-float __shfl_xor_sync(unsigned, float v, int lane_mask) {
-  const int w = threadIdx.x >> 5, l = threadIdx.x & 31;
-  warp_slot[w][l] = v;
-  warp_barrier[w]->arrive_and_wait();
-  const float out = warp_slot[w][l ^ lane_mask];
-  warp_barrier[w]->arrive_and_wait();
-  return out;
-}
-void __syncthreads() { block_barrier->arrive_and_wait(); }
+#include "emu_block.h"
 
 #include SITE_SOURCE
 
@@ -67,26 +50,18 @@ int main(int argc, char** argv) {
   std::vector<float> out(B * d * V, NAN);
   const size_t per = ttnx_site::scratch_per_problem(d, R, RA, n);
   std::vector<float> scratch(B * per, NAN);
-  std::barrier<> block(ttnx_site::kThreads);
-  block_barrier = &block;
-  for (auto& w : warp_barrier) w = new std::barrier<>(32);
   for (int p = 0; p < B; ++p) {
-    blockIdx.x = p;
     for (float& v : ttnx_site::site_smem) v = NAN;
-    std::vector<std::thread> threads;
-    for (int t = 0; t < ttnx_site::kThreads; ++t)
-      threads.emplace_back([&, t] {
-        threadIdx.x = t;
-        if (R == 32)
-          ttnx_site::sweep_site_kernel<32, 2, 4>(
-              A.data(), b.data(), x.data(), m.data(), out.data(),
-              scratch.data(), per, d, cg, polish, ns1, ns2);
-        else
-          ttnx_site::sweep_site_kernel<64, 2, 4>(
-              A.data(), b.data(), x.data(), m.data(), out.data(),
-              scratch.data(), per, d, cg, polish, ns1, ns2);
-      });
-    for (auto& t : threads) t.join();
+    run_block(p, ttnx_site::kThreads, [&] {
+      if (R == 32)
+        ttnx_site::sweep_site_kernel<32, 2, 4>(
+            A.data(), b.data(), x.data(), m.data(), out.data(),
+            scratch.data(), per, d, cg, polish, ns1, ns2);
+      else
+        ttnx_site::sweep_site_kernel<64, 2, 4>(
+            A.data(), b.data(), x.data(), m.data(), out.data(),
+            scratch.data(), per, d, cg, polish, ns1, ns2);
+    });
   }
   FILE* f = fopen((dir + "/out.bin").c_str(), "wb");
   fwrite(out.data(), sizeof(float), out.size(), f);

@@ -20,7 +20,9 @@ ones) and ``wmma`` (the largest shape); B11 also at the bench's 2048
 iterations on the norm-keeping input (rel Frobenius 1e-3, norm within 1 %).
 B7 is held on both of its routes: ``site`` (f32 at R = 64 and 32, with and
 without the polish stage) and ``folded`` (f64, the ragged R = 40 stack and
-the bf16 refine stage).
+the bf16 refine stage). B4 and B5 likewise: ``resident`` (f32 at R = 64
+and 32, warm and cold, a rank mask and a scattered one) and ``streamed``
+(f64, R = 20 and 40).
 """
 
 import numpy as np
@@ -54,7 +56,7 @@ from ttnx_torch.kernels.local_cg import (bicgstab_solve_fused,
 from ttnx_torch.kernels.local_cg_mf import (cg_matfree_batched_plain,
                                             cg_matfree_fused,
                                             cg_matfree_fused_batched,
-                                            cg_matfree_plain)
+                                            cg_matfree_plain, matfree_route)
 from ttnx_torch.solvers.als_scan import rank_masks
 
 DTYPES = [torch.float32, torch.float64]
@@ -161,6 +163,7 @@ def test_cg_matfree_kernel(cuda, dtype, warm, R, RA):
     kw = dict(x0=x0 if warm else None, iters=10)
     got = cg_matfree_fused(L, Ac, Renv, rhs, mask, **kw)
     torch.cuda.synchronize()
+    assert cg_matfree_fused.route == "streamed"
     _close(got, cg_matfree_plain(L, Ac, Renv, rhs, mask, **kw),
            _tol(dtype, loose=True))
 
@@ -180,8 +183,59 @@ def test_cg_matfree_batched_kernel(cuda, dtype, warm):
     got = cg_matfree_fused_batched(L_, Ac, Renv_, rhs_, mask, **kw)
     torch.cuda.synchronize()
     assert cg_matfree_fused_batched.launches == before + 1
+    assert cg_matfree_fused_batched.route == "streamed"
     _close(got, cg_matfree_batched_plain(L_, Ac, Renv_, rhs_, mask, **kw),
            _tol(dtype, loose=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [64, 32])
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("scattered", [False, True],
+                         ids=["rank-mask", "scattered-mask"])
+def test_cg_matfree_resident_route(cuda, R, B, warm, scattered):
+    """B4 (B = 1) and B5 (B = 3) on the resident route (f32 at (R, 2, 4))
+    against their plain versions, with the solvers' kind of mask and with
+    a scattered 0/1 mask that is no outer product."""
+    rng = np.random.default_rng(R + B)
+    local = [_local(rng, R, 4) for _ in range(B)]
+    mask = local[0][4]
+    if scattered:
+        mask = (rng.random(mask.shape) < 0.8).astype(float)
+    L, Renv, rhs, x0 = (np.stack([p[k] for p in local]) for k in (0, 2, 3, 5))
+    L, Ac, Renv, rhs, mask, x0 = _on(cuda, torch.float32, L, local[0][1],
+                                     Renv, rhs, mask, x0)
+    assert matfree_route(torch.float32, R, 2, 4) == "resident"
+    kw = dict(x0=x0 if warm else None, iters=16)
+    if B == 1:
+        kw["x0"] = None if kw["x0"] is None else kw["x0"][0]
+        wrapper, plain, args = cg_matfree_fused, cg_matfree_plain, (
+            L[0], Ac, Renv[0], rhs[0], mask)
+    else:
+        wrapper, plain, args = (cg_matfree_fused_batched,
+                                cg_matfree_batched_plain,
+                                (L, Ac, Renv, rhs, mask))
+    before = wrapper.launches
+    got = wrapper(*args, **kw)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert wrapper.route == "resident"
+    _close(got, plain(*args, **kw), 1e-4)
+
+
+@pytest.mark.cuda
+def test_cg_matfree_f64_at_resident_shape_streams(cuda):
+    """f64 at the resident kernel's shape keeps PR 1's kernel."""
+    rng = np.random.default_rng(23)
+    local = [_local(rng, 64, 4) for _ in range(2)]
+    L, Renv, rhs, x0 = (np.stack([p[k] for p in local]) for k in (0, 2, 3, 5))
+    args = _on(cuda, torch.float64, L, local[0][1], Renv, rhs, local[0][4])
+    kw = dict(x0=_on(cuda, torch.float64, x0)[0], iters=10)
+    got = cg_matfree_fused_batched(*args, **kw)
+    torch.cuda.synchronize()
+    assert cg_matfree_fused_batched.route == "streamed"
+    _close(got, cg_matfree_batched_plain(*args, **kw), 1e-10)
 
 
 @pytest.mark.cuda

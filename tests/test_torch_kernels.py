@@ -41,7 +41,10 @@ from ttnx_torch.kernels.gram import gram_chain_fused, gram_chain_plain
 from ttnx_torch.kernels.local_cg import (bicgstab_solve_fused,
                                          bicgstab_solve_plain,
                                          cg_solve_fused, cg_solve_plain)
-from ttnx_torch.kernels.local_cg_mf import cg_matfree_fused, cg_matfree_plain
+from ttnx_torch.kernels.local_cg_mf import (cg_matfree_batched_plain,
+                                            cg_matfree_fused,
+                                            cg_matfree_fused_batched,
+                                            cg_matfree_plain, matfree_route)
 from ttnx_torch.solvers.als_scan import _local_solve_padded as t_local_solve
 
 F64, F32 = np.float64, np.float32
@@ -281,6 +284,44 @@ def test_cpu_tensor_takes_plain_version(case):
     assert wrapper.launches == 0
 
 
+@pytest.mark.parametrize("dtype,R,n,RA,route", [
+    (torch.float32, 64, 2, 4, "resident"),
+    (torch.float32, 32, 2, 4, "resident"),
+    (torch.float64, 64, 2, 4, "streamed"),
+    (torch.float64, 32, 2, 4, "streamed"),
+    (torch.float32, 20, 2, 4, "streamed"),
+    (torch.float32, 40, 2, 4, "streamed"),
+    (torch.float32, 16, 2, 4, "streamed"),
+    (torch.float32, 64, 2, 3, "streamed"),
+    (torch.float32, 64, 3, 4, "streamed"),
+])
+def test_matfree_route_by_dtype_and_shape(dtype, R, n, RA, route):
+    """B4/B5's kernel is chosen from dtype and (R, n, RA) alone."""
+    assert matfree_route(dtype, R, n, RA) == route
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["B4", "B5"])
+def test_cpu_tensors_at_resident_shape_take_plain(batched):
+    """f32 at the resident kernel's shape (R = 32) on the CPU: the plain
+    version, no launch, the recorded route untouched."""
+    p = {k: _t(v, F32) for k, v in _local_problem(15, R=32).items()}
+    args = [p["L"], p["Ac"], p["Renv"], p["rhs"], p["mask"]]
+    x0 = p["x0"]
+    wrapper, plain = cg_matfree_fused, cg_matfree_plain
+    if batched:
+        wrapper, plain = cg_matfree_fused_batched, cg_matfree_batched_plain
+        for k in (0, 2, 3):
+            args[k] = torch.stack([args[k], 2.0 * args[k]])
+        x0 = torch.stack([x0, -x0])
+    assert matfree_route(torch.float32, 32, 2, args[1].shape[0]) == \
+        "resident"
+    route, before = wrapper.route, wrapper.launches
+    assert torch.equal(wrapper(*args, x0=x0, iters=3),
+                       plain(*args, x0=x0, iters=3))
+    assert wrapper.launches == before
+    assert wrapper.route == route
+
+
 def test_gate_rejects_other_devices_and_types():
     with pytest.raises(ValueError):
         dispatch.use_kernel(torch.empty(2, device="meta"))
@@ -375,6 +416,7 @@ def test_c_entries_match_ctypes_signatures():
 def test_build_sources_and_flags():
     names = {p.name for p in _build._sources()}
     assert {"gram_chain.cu", "env_chain.cu", "local_cg.cu", "local_cg_mf.cu",
-            "als_sweep_fused.cu", "lanczos.cu", "contraction.cu",
-            "common.cuh"} <= names
+            "local_cg_site.cu", "als_sweep_fused.cu", "als_sweep_site.cu",
+            "lanczos.cu", "contraction.cu", "common.cuh",
+            "site_engine.cuh"} <= names
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

@@ -25,6 +25,7 @@ from ttnx_torch.kernels.als_sweep_fused import als_fwd_bwd_plain
 
 ROOT = Path(__file__).resolve().parents[1]
 EMU = Path(__file__).resolve().parent / "cuda_emu"
+CSRC = ROOT / "ttnx_torch" / "csrc"
 LAUNCH = "<<<B, kThreads, smem, st>>>"
 
 
@@ -34,12 +35,12 @@ def emulator(tmp_path_factory):
     if gxx is None:
         pytest.skip("needs g++ to run the CUDA kernel's emulation")
     work = tmp_path_factory.mktemp("site_emu")
-    src = (ROOT / "ttnx_torch" / "csrc" / "als_sweep_site.cu").read_text()
+    src = (CSRC / "als_sweep_site.cu").read_text()
     assert src.count(LAUNCH) == 1
     (work / "site.cpp").write_text(src.replace(LAUNCH, ""))
     exe = work / "emulate_site"
     done = subprocess.run(
-        [gxx, "-std=c++20", "-O1", "-I", str(EMU),
+        [gxx, "-std=c++20", "-O1", "-I", str(EMU), "-I", str(CSRC),
          f'-DSITE_SOURCE="{work / "site.cpp"}"',
          str(EMU / "emulate_site.cpp"), "-o", str(exe), "-lpthread"],
         capture_output=True, text=True)

@@ -14,9 +14,9 @@ never loads a stale library. The library is loaded with ``ctypes``; every
 entry point takes ``c_void_p`` for pointers and the stream, ``c_int`` for
 sizes, and returns ``cudaGetLastError()`` after its launches. Each entry
 point exists for the dtype suffixes its signature lists: ``f32`` and
-``f64`` for the linear-algebra kernels, ``f32`` alone for B7's
-site-resident route, ``bf16`` and ``f32`` for the contraction kernels,
-``bf16`` alone for their tensor-core routes.
+``f64`` for the linear-algebra kernels, ``f32`` alone for the
+site-resident routes of B7 and B4/B5, ``bf16`` and ``f32`` for the
+contraction kernels, ``bf16`` alone for their tensor-core routes.
 """
 
 from __future__ import annotations
@@ -62,6 +62,9 @@ _SIGNATURES = {
     # the same with B first among the sizes
     "cg_matfree_batched": ([P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
                            REAL),
+    # the same arguments; (R, n, RA) = (64, 2, 4) or (32, 2, 4)
+    "cg_matfree_site": ([P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
+                        ("f32",)),
     # x, A, b, envs, envs_b, scratch, B, d, R, RA, n, Rb, left, raw, stream
     "env_chain_batched": ([P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
                           REAL),

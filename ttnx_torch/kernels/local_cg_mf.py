@@ -6,16 +6,26 @@ Above ``M = R n R = 1024`` the dense local K is not assembled; CG applies
     K v[a,i,c] = sum L[a,W,b] Ac[W,i,J,w] Renv[c,w,d] v[b,J,d]
 
 with the identity on masked-out (padded) directions. :func:`cg_matfree_fused`
-runs the whole solve in one launch of the Hopper kernel
-(``csrc/local_cg_mf.cu``) for CUDA tensors and :func:`cg_matfree_plain` for
-CPU tensors. On the card it serves every real shape, including R < 32
-(it computes what the einsum ``'cg'`` path computes).
+runs the whole solve in one kernel launch for CUDA tensors and
+:func:`cg_matfree_plain` for CPU tensors. On the card it serves every real
+shape, including R < 32 (it computes what the einsum ``'cg'`` path
+computes).
 
-:func:`cg_matfree_fused_batched` solves B such systems in one launch of the
-same kernel on a grid of B blocks, with a shared MPO core and mask and one
-set of CG scalars per problem; :func:`cg_matfree_batched_plain` is its
-plain version (and, with its conjugating dot, the batched einsum ``'cg'``
-path for complex dtypes too).
+:func:`cg_matfree_fused_batched` solves B such systems in one launch on a
+grid of B blocks, with a shared MPO core and mask and one set of CG
+scalars per problem; :func:`cg_matfree_batched_plain` is its plain version
+(and, with its conjugating dot, the batched einsum ``'cg'`` path for
+complex dtypes too). B4 is the same kernel on a grid of one.
+
+The kernel is chosen by dtype and shape alone, before the launch and never
+on a failure (:func:`matfree_route`); each wrapper keeps the route of its
+last launch in its ``route`` attribute:
+
+* ``"resident"`` -- ``csrc/local_cg_site.cu``: float32 at ``(R, n, RA)``
+  in :data:`RESIDENT_SHAPES`; L and Renv stay in shared memory for the
+  whole solve, the apply runs on B7's site engine.
+* ``"streamed"`` -- ``csrc/local_cg_mf.cu`` (operands streamed from L2
+  every apply): float64 and every other shape.
 
 ``x0`` and ``iters`` are keyword-only.
 """
@@ -29,7 +39,48 @@ from ttnx_torch.kernels.dispatch import counted, require_real, use_kernel
 from ttnx_torch.kernels.local_cg import _safe_div
 
 __all__ = ["cg_matfree_fused", "cg_matfree_plain", "apply_local_op",
-           "cg_matfree_fused_batched", "cg_matfree_batched_plain"]
+           "cg_matfree_fused_batched", "cg_matfree_batched_plain",
+           "matfree_route", "RESIDENT_SHAPES"]
+
+# (R, n, RA) the resident kernel is instantiated for: the CN step's and the
+# batched bench's rank-64 heat problem and the rank-32 CN step
+RESIDENT_SHAPES = ((64, 2, 4), (32, 2, 4))
+
+
+def matfree_route(dtype, R: int, n: int, RA: int) -> str:
+    """The kernel of B4 and B5: ``"resident"`` for float32 at an
+    instantiated shape, else ``"streamed"``."""
+    if dtype == torch.float32 and (R, n, RA) in RESIDENT_SHAPES:
+        return "resident"
+    return "streamed"
+
+
+def _launch(L, Ac, Renv, rhs, mask, x0, iters: int, batched: bool):
+    """Launch B5 (``batched``) or B4 on checked operands; returns ``(x,
+    route)``. B4's resident route is B5's kernel on a grid of one."""
+    L, Ac, Renv = L.contiguous(), Ac.contiguous(), Renv.contiguous()
+    rhs, mask = rhs.contiguous(), mask.contiguous()
+    x0c = rhs if x0 is None else x0.contiguous()  # unread when cold
+    out = torch.empty_like(rhs)
+    B = L.shape[0] if batched else 1
+    R, RA = L.shape[-3], L.shape[-2]
+    n = rhs.shape[-2]
+    route = matfree_route(rhs.dtype, R, n, RA)
+    V = R * n * R
+    per_problem = 3 * V if route == "resident" else 3 * V + 2 * RA * V
+    scratch = torch.empty(B * per_problem, dtype=rhs.dtype,
+                          device=rhs.device)
+    if route == "resident":
+        entry, sizes = "cg_matfree_site", (B,)
+    elif batched:
+        entry, sizes = "cg_matfree_batched", (B,)
+    else:
+        entry, sizes = "cg_matfree", ()
+    _build.call(entry, rhs.dtype, L.data_ptr(), Ac.data_ptr(),
+                Renv.data_ptr(), rhs.data_ptr(), mask.data_ptr(),
+                x0c.data_ptr(), out.data_ptr(), scratch.data_ptr(), *sizes,
+                R, RA, n, int(iters), int(x0 is not None))
+    return out, route
 
 
 def apply_local_op(L, Ac, Renv, v):
@@ -70,17 +121,8 @@ def cg_matfree_fused(L, Ac, Renv, rhs, mask, *, x0=None, iters: int = 32):
             or mask.shape != vec or (x0 is not None and x0.shape != vec)):
         raise ValueError("cg_matfree_fused: expected L/Renv (R, RA, R), "
                          "Ac (RA, n, n, RA), rhs/mask/x0 (R, n, R)")
-    L, Ac, Renv = L.contiguous(), Ac.contiguous(), Renv.contiguous()
-    rhs, mask = rhs.contiguous(), mask.contiguous()
-    x0c = rhs if x0 is None else x0.contiguous()  # unread when cold
-    out = torch.empty_like(rhs)
-    V = R * n * R
-    scratch = torch.empty(3 * V + 2 * RA * V, dtype=rhs.dtype,
-                          device=rhs.device)
-    _build.call("cg_matfree", rhs.dtype, L.data_ptr(), Ac.data_ptr(),
-                Renv.data_ptr(), rhs.data_ptr(), mask.data_ptr(),
-                x0c.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                R, RA, n, int(iters), int(x0 is not None))
+    out, cg_matfree_fused.route = _launch(L, Ac, Renv, rhs, mask, x0,
+                                          iters, batched=False)
     cg_matfree_fused.launches += 1
     return out
 
@@ -142,16 +184,11 @@ def cg_matfree_fused_batched(L, Ac, Renv, rhs, mask, *, x0=None,
         raise ValueError("cg_matfree_fused_batched: expected L/Renv "
                          "(B, R, RA, R), Ac (RA, n, n, RA), rhs/x0 "
                          "(B, R, n, R), mask (R, n, R)")
-    L, Ac, Renv = L.contiguous(), Ac.contiguous(), Renv.contiguous()
-    rhs, mask = rhs.contiguous(), mask.contiguous()
-    x0c = rhs if x0 is None else x0.contiguous()  # unread when cold
-    out = torch.empty_like(rhs)
-    V = R * n * R
-    scratch = torch.empty(B * (3 * V + 2 * RA * V), dtype=rhs.dtype,
-                          device=rhs.device)
-    _build.call("cg_matfree_batched", rhs.dtype, L.data_ptr(), Ac.data_ptr(),
-                Renv.data_ptr(), rhs.data_ptr(), mask.data_ptr(),
-                x0c.data_ptr(), out.data_ptr(), scratch.data_ptr(),
-                B, R, RA, n, int(iters), int(x0 is not None))
+    out, cg_matfree_fused_batched.route = _launch(
+        L, Ac, Renv, rhs, mask, x0, iters, batched=True)
     cg_matfree_fused_batched.launches += 1
     return out
+
+
+cg_matfree_fused.route = None
+cg_matfree_fused_batched.route = None
