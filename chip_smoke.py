@@ -63,30 +63,35 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 3d. Kernels B10-B13 against their plain versions: B10 (BiCGStab, 32
    iterations) on the K the convection step assembles at a middle site
    (M = 512; see CONV_SITE) and on a seeded diagonally dominant K at M =
-   999, f32
-   (<= 1e-4) and f64 (<= 1e-10); B11 and B12 at the bench shapes, compared
+   999, f32 (<= 1e-4; at CONV_SITE also two launches bit-identical) and
+   f64 (<= 1e-10); B11 and B12 at the bench shapes, compared
    at 8 iterations (at the bench's 2048 the iterate has decayed to zero),
    bf16 (one bf16 ulp, 2^-8, for each rounding of the chain: 16 for B11,
    8 for B12) and f32 (<= 1e-4); B11 again at the bench's 2048 iterations
    on the norm-keeping input (entry.norm_keeping_contraction_problem, b w
    = I exactly in bf16), bf16: rel Frobenius <= 1e-3 and the output norm
-   within 1 % of the input's; B13 at (4096, 128, 64) @ (4096, 64, 128) in
-   bf16 and f32 (<= 1e-5), with torch.bmm's time beside it. Each B11 and
-   B13 line names the kernel route the wrapper chose by shape.
+   within 1 % of the input's; B12 likewise at the bench's 1024 iterations
+   on its norm-keeping input (entry.norm_keeping_matmul_problem, w w^T = I
+   exactly in bf16); B13 at (4096, 128, 64) @ (4096, 64, 128) in bf16 and
+   f32 (<= 1e-5), with torch.bmm's time beside it. Each B10-B13 line names
+   the kernel route the wrapper chose by dtype and shape (B10 "cluster"
+   for f32 at M <= 668, else "l2"; B12 "wgmma" for bf16 at k <= 128).
 8. Convection-diffusion CN path: d=12, rmax=16, f32, h=1e-6, c=1e3,
    solver='bicgstab_fused' (32 cold BiCGStab iterations a local solve),
    8 chained steps from the three-mode state (median of 3 chains after a
    warm-up), through the kernels and the plain versions: the 8-step state
    against the sparse-LU oracle (rel <= 1e-3), the last step's residual
    with the exact operators (<= 1e-2), kernels against plain (rel <=
-   1e-4), launches per step (B10 22, B1 1, B2 1 right + 1 left, B3/B4 0).
+   1e-4), launches per step (B10 22 on route "cluster", B1 1, B2 1 right
+   + 1 left, B3/B4 0).
 9. Contraction path at the bench's shapes, bf16: the two-site merge of
    the chain's cores (B13), merge_resplit_chain at 2048 iterations (B11)
    and matmul_chain at 1024 (B12), each once for its launch count, then
    timed (CUDA events, median of 3 after a warm-up) through the kernel
    and the plain loop; finite outputs, GFLOP/s and the share of the bf16
-   bound; beside the bench chain's decay, B11's norm ratio after 2048
-   iterations on the norm-keeping input.
+   bound, B11 and B12 on route "wgmma"; beside the bench chain's decay,
+   the norm ratios of B11 after 2048 and of B12 after 1024 iterations on
+   their norm-keeping inputs.
 
 The last two lines are a JSON summary of the kernels (13 rows: errors,
 times, bound, library time; ``kernel_route`` the wrapper's route where it
@@ -1065,6 +1070,39 @@ def norm_keeping_hold(device):
     return row
 
 
+def norm_keeping_matmul_hold(device):
+    """B12 at the bench shape and 1024 iterations on its norm-keeping
+    input, bf16: rel Frobenius <= 1e-3 against the plain version, output
+    norm within 1 % of the input's."""
+    from ttnx_torch.entry import norm_keeping_matmul_problem
+    from ttnx_torch.kernels.contraction import matmul_chain
+
+    q = norm_keeping_matmul_problem(device)
+    row = hold("matmul_chain", 128, torch.bfloat16, (q["x"], q["w"]),
+               dict(iters=CEIL_ITERS), 1, 1,
+               f" iters {CEIL_ITERS} norm-keeping", fro_err, 1e-3)
+    out = matmul_chain(q["x"], q["w"], iters=CEIL_ITERS).float()
+    x = q["x"].float()
+    ratio = float(out.norm() / x.norm())
+    log(f"B12 norm-keeping bf16 {tuple(x.shape)} iters {CEIL_ITERS}: "
+        f"|out| / |x| {ratio:.7f} (within 1 %)")
+    if not (np.isfinite(ratio) and abs(ratio - 1.0) <= 1e-2):
+        raise RuntimeError(f"B12 norm-keeping: norm ratio {ratio}")
+    return row
+
+
+def deterministic(name, args, kwargs):
+    """Two launches of a kernel on the same inputs give the same bits."""
+    kernel = wrappers()[name][0]
+    first, again = kernel(*args, **kwargs), kernel(*args, **kwargs)
+    torch.cuda.synchronize()
+    same = torch.equal(first, again)
+    log(f"kernel {KERNELS[name][0]} {name} route {kernel.route}: two "
+        f"launches bit-identical {same}")
+    if not same:
+        raise RuntimeError(f"{name}: two launches differ")
+
+
 def phase_new_kernels(device):
     """3d: B10-B13 against their plain versions."""
     from ttnx_torch.entry import contraction_problem, matmul_ceiling_problem
@@ -1077,6 +1115,7 @@ def phase_new_kernels(device):
         args, kwargs = seen["bicgstab_solve_fused"][CONV_SITE]
         rows.append(hold("bicgstab_solve_fused", CONV_RMAX, dtype, args,
                          kwargs, tag=" convection K"))
+        deterministic("bicgstab_solve_fused", args, kwargs)
         M = 999
         rng = np.random.default_rng(M)
         K = rng.standard_normal((M, M)) / np.sqrt(M) + 2.0 * np.eye(M)
@@ -1101,6 +1140,7 @@ def phase_new_kernels(device):
         rows.append(hold("two_site_merge", 64, dtype, (p["a"], p["b"]), {},
                          reps, repeats, " merge", as_float(max_err), 1e-5))
     rows.append(norm_keeping_hold(device))
+    rows.append(norm_keeping_matmul_hold(device))
     return rows
 
 
@@ -1126,6 +1166,9 @@ def phase_convection_path(device):
     if per_step != want:
         raise RuntimeError(f"convection: launches per step {per_step}, "
                            f"expected {want}")
+    b10 = wrappers()["bicgstab_solve_fused"][0].route
+    if b10 != "cluster":
+        raise RuntimeError(f"convection: B10 took route {b10}, not cluster")
     if one.shape != us.shape or not bool(torch.isfinite(one).all()):
         raise RuntimeError("convection: step output is not a finite stack")
     ms, v7, v8 = timed_chain(step_fn, us)
@@ -1141,7 +1184,8 @@ def phase_convection_path(device):
         plain_ms, _, p8 = timed_chain(step_fn, us)
     agree = float(np.linalg.norm(d8 - dense(unpack, p8))
                   / np.linalg.norm(d8))
-    RA = max(add_op(id_tto(D), convection_operator(D, CONV_C)).ranks)
+    # the MPO rank only: built on the host, as id_tto is
+    RA = max(add_op(id_tto(D), convection_operator(D, CONV_C, "cpu")).ranks)
     gflops = cn_step_bicgstab_flops(D, CONV_RMAX, RA, RA,
                                     bicg_iters=BICG_ITERS) / (ms * 1e-3) / 1e9
     log(f"convection cn_step d={D} r{CONV_RMAX} c={CONV_C:g} f32 "
@@ -1149,7 +1193,8 @@ def phase_convection_path(device):
         f"{plain_ms:.3f} ms/step | rel to the sparse-LU oracle {rel:.3e} "
         f"(<= 1e-3; the state moved {moved:.3e}) residual {res:.3e} (<= "
         f"1e-2) | kernel vs plain 8-step rel {agree:.3e} (<= 1e-4) | "
-        f"launches/step { {k: v for k, v in per_step.items() if v} }")
+        f"launches/step { {k: v for k, v in per_step.items() if v} } | "
+        f"B10 route {b10}")
     if not (np.isfinite(rel) and rel <= 1e-3 and res <= 1e-2
             and agree <= 1e-4):
         raise RuntimeError(f"convection failed its gates: rel={rel:.3e} "
@@ -1173,7 +1218,8 @@ def phase_contraction_path(device):
     """9: the contraction path at the bench's shapes in bf16; returns (the
     launch counts, one row per kernel)."""
     from ttnx_torch.entry import (contraction_problem, matmul_ceiling_problem,
-                                  norm_keeping_contraction_problem)
+                                  norm_keeping_contraction_problem,
+                                  norm_keeping_matmul_problem)
     from ttnx_torch.kernels import contraction as ct
     from ttnx_torch.kernels.dispatch import launch_counts, reset_launch_counts
     from ttnx_torch.utils.flops import (contraction_chain_flops,
@@ -1193,12 +1239,19 @@ def phase_contraction_path(device):
     kept = float(ct.merge_resplit_chain(nk["a"], nk["b"], nk["w"],
                                         iters=CHAIN_ITERS).float().norm()
                  / nk["a"].float().norm())
+    nq = norm_keeping_matmul_problem(device)
+    kept12 = float(ct.matmul_chain(nq["x"], nq["w"], iters=CEIL_ITERS)
+                   .float().norm() / nq["x"].float().norm())
+    decay12 = float(ct.matmul_chain(q["x"], q["w"], iters=CEIL_ITERS)
+                    .float().norm() / q["x"].float().norm())
     log(f"contraction chain: spectral radius of b w median "
         f"{np.median(rho):.3f} max {rho.max():.3f} (bf16 factors) | "
         f"|acc| / |a| after {list(decay)} iterations (B11, bf16): "
         f"{[f'{v:.3e}' for v in decay.values()]} | norm-keeping input "
         f"(b w = I): |acc| / |a| after {CHAIN_ITERS} iterations "
-        f"{kept:.7f}")
+        f"{kept:.7f} | B12 |x| / |x0| after {CEIL_ITERS} iterations: bench "
+        f"input {decay12:.3e}, norm-keeping input (w w^T = I) "
+        f"{kept12:.7f}")
     runs = {
         "two_site_merge": (lambda: ct.two_site_merge(p["a"], p["b"]),
                            (p["a"], p["b"]), {}, 2.0 * B * r2 * r * r2),
@@ -1220,6 +1273,10 @@ def phase_contraction_path(device):
     want.update(dict.fromkeys(runs, 1))
     if counts != want:
         raise RuntimeError(f"contraction: launches {counts}, expected {want}")
+    for name in ("merge_resplit_chain", "matmul_chain"):
+        if wrappers()[name][0].route != "wgmma":
+            raise RuntimeError(f"contraction: {name} took route "
+                               f"{wrappers()[name][0].route}, not wgmma")
     rows = []
     for name, (run, args, kw, flops) in runs.items():
         out = outs[name]

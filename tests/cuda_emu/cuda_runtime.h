@@ -1,11 +1,14 @@
-// A CPU stand-in for the parts of cuda_runtime.h that the site-resident
-// kernels (ttnx_torch/csrc/als_sweep_site.cu, local_cg_site.cu and their
-// site_engine.cuh) use, so that they run on the CPU under
-// tests/cuda_emu/emulate_site.cpp and emulate_matfree.cpp. The runtime
-// half (threads and barriers) is emu_block.h.
+// A CPU stand-in for the parts of cuda_runtime.h that the emulated kernels
+// use: the site-resident kernels (ttnx_torch/csrc/als_sweep_site.cu,
+// local_cg_site.cu and their site_engine.cuh) under
+// tests/cuda_emu/emulate_site.cpp and emulate_matfree.cpp, and the
+// cluster route of B10 (local_cg.cu with dense_cluster.cuh) under
+// emulate_cluster.cpp. The runtime half (threads, barriers, clusters) is
+// emu_block.h; cooperative_groups.h is the cluster API on top of it.
 #pragma once
 #include <cmath>
 #include <cstddef>
+#include <functional>
 
 struct float4 {
   float x, y, z, w;
@@ -30,8 +33,14 @@ struct emu_dim3 {
   unsigned x, y, z;
 };
 extern thread_local emu_dim3 threadIdx;
-extern emu_dim3 blockIdx;
+extern thread_local emu_dim3 blockIdx;
+extern thread_local emu_dim3 blockDim;
 float __shfl_xor_sync(unsigned mask, float v, int lane_mask);
+double emu_shfl_down(double v, int delta);
+template <typename T>
+T __shfl_down_sync(unsigned, T v, int delta) {
+  return (T)emu_shfl_down((double)v, delta);
+}
 void __syncthreads();
 
 typedef int cudaError_t;
@@ -39,10 +48,54 @@ typedef void* cudaStream_t;
 enum {
   cudaSuccess = 0,
   cudaErrorInvalidValue = 1,
-  cudaFuncAttributeMaxDynamicSharedMemorySize = 8
+  cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
+  cudaErrorInvalidConfiguration = 9,
+  cudaLaunchAttributeClusterDimension = 4
 };
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, int, int) {
   return 0;
 }
 inline cudaError_t cudaGetLastError() { return 0; }
+
+// Cluster launches: cudaLaunchKernelEx runs the grid as one cluster of
+// emulated blocks, each with its own dynamic shared memory.
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+struct cudaLaunchAttribute {
+  int id;
+  struct {
+    struct {
+      unsigned x, y, z;
+    } clusterDim;
+  } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
+template <class F>
+cudaError_t cudaOccupancyMaxActiveClusters(int* clusters, F,
+                                           const cudaLaunchConfig_t*) {
+  *clusters = 1;
+  return 0;
+}
+void emu_run_cluster(int blocks, int threads, size_t smem_bytes,
+                     const std::function<void()>& body);
+unsigned char* emu_dynamic_smem();
+template <class... P, class... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg,
+                               void (*kernel)(P...), A&&... args) {
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension &&
+        cfg->attrs[i].val.clusterDim.x != cfg->gridDim.x)
+      return cudaErrorInvalidConfiguration;  // one cluster a grid only
+  emu_run_cluster(cfg->gridDim.x, cfg->blockDim.x, cfg->dynamicSmemBytes,
+                  [&] { kernel(args...); });
+  return 0;
+}

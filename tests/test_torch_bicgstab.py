@@ -22,8 +22,9 @@ from ttnx.solvers import round_scan as j_rs
 from ttnx_torch.core.decomp import ttv_to_tensor as t_dense
 from ttnx_torch.entry import (convection_cn_operators, convection_cn_step,
                               dense_cn_reference, three_mode_state)
-from ttnx_torch.kernels.local_cg import (bicgstab_solve_fused,
-                                         bicgstab_solve_plain)
+from ttnx_torch.kernels import local_cg
+from ttnx_torch.kernels.local_cg import (bicgstab_route, bicgstab_solve_fused,
+                                         bicgstab_solve_plain, cluster_smem)
 
 
 def _nonsymmetric(seed, M):
@@ -56,6 +57,30 @@ def test_bicgstab_plain_vs_ttnx_kernel(dt, tol, M):
     assert got.dtype == (torch.float64 if dt == np.float64
                          else torch.float32)
     _close(got.numpy(), np.asarray(ref), tol)
+
+
+@pytest.mark.parametrize("dtype,M,route", [
+    (torch.float32, 512, "cluster"), (torch.float32, 1, "cluster"),
+    (torch.float32, 5, "cluster"), (torch.float32, 668, "cluster"),
+    (torch.float32, 669, "l2"), (torch.float32, 999, "l2"),
+    (torch.float64, 512, "l2"), (torch.float64, 24, "l2")])
+def test_bicgstab_route_follows_dtype_and_size(dtype, M, route):
+    """B10 chooses its CUDA kernel by dtype and M alone: f32 K whose rows
+    fit a cluster of 8 CTAs' shared memory (227 KB a CTA) the cluster
+    kernel, f64 and larger K the one-block L2 kernel."""
+    assert bicgstab_route(dtype, M) == route
+
+
+def test_cluster_route_shared_memory():
+    """The cluster route's limit is where one CTA's share (its rows of K
+    and of the five sliced vectors, full p and s, four slot arrays) stops
+    fitting 227 KB: 136,576 bytes at the path's M = 512 (64 rows, 128 KB
+    of K)."""
+    assert cluster_smem(512) == 136576
+    assert local_cg.CLUSTER_MAX_M == 668
+    assert cluster_smem(668) <= local_cg.SMEM_BLOCK < cluster_smem(669)
+    assert all(cluster_smem(M) <= local_cg.SMEM_BLOCK
+               for M in range(1, 669))
 
 
 def test_bicgstab_converges_to_dense_solve():
@@ -100,7 +125,7 @@ def test_convection_cn_step_matches_ttnx(tdt, jdt, tol):
     compared as dense vectors."""
     d, rmax, h, c, iters = 6, 8, 1e-5, 1e2, 24
     hg = 1.0 / (2 ** d + 1)
-    u0 = three_mode_state(d, hg)
+    u0 = three_mode_state(d, hg, "cpu")
     step, pack, unpack = convection_cn_step(torch.device("cpu"), rmax=rmax,
                                             d=d, h=h, c=c, dtype=tdt,
                                             bicg_iters=iters)
@@ -137,7 +162,7 @@ def test_convection_cn_step_matches_dense_reference():
     convection moves the state by ~1e-2 over them."""
     d, h, c = 8, 1e-5, 1e2
     hg = 1.0 / (2 ** d + 1)
-    u0 = three_mode_state(d, hg)
+    u0 = three_mode_state(d, hg, "cpu")
     step, pack, unpack = convection_cn_step(torch.device("cpu"), rmax=8, d=d,
                                             h=h, c=c, dtype=torch.float64)
     u = pack(u0)

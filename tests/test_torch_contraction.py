@@ -24,10 +24,12 @@ from ttnx.kernels.contraction import merge_resplit_chain as j_chain
 from ttnx.kernels.contraction import two_site_merge as j_merge
 
 from ttnx_torch.entry import (contraction_problem, matmul_ceiling_problem,
-                              norm_keeping_contraction_problem)
+                              norm_keeping_contraction_problem,
+                              norm_keeping_matmul_problem)
 from ttnx_torch.kernels import dispatch
 from ttnx_torch.kernels.contraction import (chain_route, matmul_chain,
-                                            matmul_chain_plain, merge_route,
+                                            matmul_chain_plain,
+                                            matmul_chain_route, merge_route,
                                             merge_resplit_chain,
                                             merge_resplit_chain_plain,
                                             two_site_merge,
@@ -146,6 +148,61 @@ def test_norm_keeping_chain_keeps_its_norm_over_the_bench_iterations():
     assert 0.0 < drift < 1e-2, drift
 
 
+@pytest.mark.parametrize("m,k", [(16, 64), (128, 128), (5, 192)])
+def test_norm_keeping_matmul_problem_w_is_orthogonal(m, k):
+    """``w w^T = I`` exactly in bf16; every entry 0 or +-1/8, 64 nonzeros
+    a row and a column, distinct per problem; ``x`` is the bench's
+    recipe."""
+    p = norm_keeping_matmul_problem(torch.device("cpu"), batch=3, m=m, k=k,
+                                    seed=4)
+    x, w = p["x"], p["w"]
+    assert x.shape == (3, m, k) and w.shape == (3, k, k)
+    assert x.dtype == w.dtype == torch.bfloat16
+    wf = w.float()
+    eye = torch.eye(k).expand(3, k, k)
+    assert torch.equal(torch.bmm(wf, wf.transpose(1, 2)), eye)
+    assert torch.equal(torch.bmm(wf.transpose(1, 2), wf), eye)
+    assert set(wf.abs().unique().tolist()) == (
+        {0.125} if k == 64 else {0.0, 0.125})
+    assert ((wf != 0).sum(dim=1) == 64).all()
+    assert ((wf != 0).sum(dim=2) == 64).all()
+    assert not torch.equal(w[0], w[1])
+    rng = np.random.default_rng(4)
+    want = rng.standard_normal((3, m, k)) * 0.1
+    assert torch.equal(x, torch.as_tensor(want).to(torch.bfloat16))
+    with pytest.raises(ValueError):
+        norm_keeping_matmul_problem(torch.device("cpu"), batch=1, k=96)
+
+
+@pytest.mark.parametrize("B,m,k,seed", [(2, 16, 64, 3), (2, 24, 128, 4)])
+def test_norm_keeping_matmul_chain_plain_vs_ttnx_kernel(B, m, k, seed):
+    """On the norm-keeping input the plain chain equals the ttnx kernel in
+    interpret mode bit for bit, and the iterate keeps its norm (1 %)."""
+    p = norm_keeping_matmul_problem(torch.device("cpu"), batch=B, m=m, k=k,
+                                    seed=seed)
+    jx, jw = (jnp.asarray(p[n].float().numpy()).astype(jnp.bfloat16)
+              for n in "xw")
+    ref = j_matmul_chain(jx, jw, iters=8, block_b=B, interpret=True,
+                         unroll=4)
+    got = matmul_chain(p["x"], p["w"], iters=8)
+    assert got.dtype == torch.bfloat16
+    assert np.array_equal(got.float().numpy(),
+                          np.asarray(ref.astype(jnp.float32)))
+    assert abs(float(got.float().norm() / p["x"].float().norm()) - 1) <= 1e-2
+
+
+def test_norm_keeping_matmul_chain_keeps_its_norm_over_the_bench_iterations():
+    """At the bench's (m, k) = (128, 128) and 1024 iterations (small
+    batch) the plain chain's norm stays within 1 %: only its roundings
+    move it."""
+    p = norm_keeping_matmul_problem(torch.device("cpu"), batch=2)
+    got = matmul_chain_plain(p["x"], p["w"], iters=1024).float()
+    x = p["x"].float()
+    assert bool(torch.isfinite(got).all())
+    assert abs(float(got.norm() / x.norm()) - 1.0) <= 1e-2
+    assert abs(float(got.norm() / x.norm()) - 1.0) > 0.0  # the roundings
+
+
 def test_chain_plain_versions_round_where_the_kernels_do():
     """A bf16 chain of one round equals the f32 products of the same
     values rounded once (matmul_chain) and twice (merge_resplit_chain)."""
@@ -231,6 +288,18 @@ def test_kernel_routes_follow_dtype_and_shape():
     assert merge_route(bf, 20, 12, 28) == "mma"
     assert merge_route(bf, 256, 192, 256) == "wmma"
     assert merge_route(f32, 128, 64, 128) == "f32"
+
+
+@pytest.mark.parametrize("dtype,m,k,route", [
+    (torch.bfloat16, 128, 128, "wgmma"), (torch.bfloat16, 5, 17, "wgmma"),
+    (torch.bfloat16, 300, 64, "wgmma"), (torch.bfloat16, 128, 129, "wmma"),
+    (torch.bfloat16, 40, 160, "wmma"), (torch.float32, 128, 128, "f32"),
+    (torch.float32, 40, 160, "f32")])
+def test_matmul_chain_route_follows_dtype_and_k(dtype, m, k, route):
+    """B12 chooses its CUDA kernel by dtype and k alone: bf16 up to k =
+    128 (64 accumulators and 32 operand registers a thread) the wgmma
+    kernel, larger bf16 the wmma kernel, float32 the CUDA-core kernel."""
+    assert matmul_chain_route(dtype, m, k) == route
 
 
 def test_cpu_tensors_take_the_plain_versions():

@@ -18,7 +18,10 @@ kernel route their wrappers choose by shape (``route``): B11 ``wgmma``
 (r <= 64) and ``wmma`` (r = 80), B13 ``mma`` (16-byte rows and ragged
 ones) and ``wmma`` (the largest shape); B11 also at the bench's 2048
 iterations on the norm-keeping input (rel Frobenius 1e-3, norm within 1 %).
-B7 is held on both of its routes: ``site`` (f32 at R = 64 and 32, with and
+B12 likewise: ``wgmma`` (k <= 128, ragged) and ``wmma`` (k = 160), and
+at the bench's 1024 iterations on its norm-keeping input. B10 on both of
+its routes: ``cluster`` (f32, M <= 668, two launches bit-identical) and
+``l2`` (f64, M = 669 and 999). B7 is held on both of its routes: ``site`` (f32 at R = 64 and 32, with and
 without the polish stage) and ``folded`` (f64, the ragged R = 40 stack and
 the bf16 refine stage). B4 and B5 likewise: ``resident`` (f32 at R = 64
 and 32, warm and cold, a rank mask and a scattered one) and ``streamed``
@@ -30,9 +33,11 @@ import pytest
 import torch
 
 from ttnx_torch.entry import (batched_als_problem, flat_spectrum_stack,
-                              norm_keeping_contraction_problem)
+                              norm_keeping_contraction_problem,
+                              norm_keeping_matmul_problem)
 from ttnx_torch.kernels.contraction import (chain_route, matmul_chain,
-                                            matmul_chain_plain, merge_route,
+                                            matmul_chain_plain,
+                                            matmul_chain_route, merge_route,
                                             merge_resplit_chain,
                                             merge_resplit_chain_plain,
                                             two_site_merge,
@@ -50,7 +55,8 @@ from ttnx_torch.kernels.env_chain import (env_chain_A_fused,
                                           right_env_chain_plain)
 from ttnx_torch.kernels.gram import gram_chain_fused, gram_chain_plain
 from ttnx_torch.kernels.lanczos import lanczos_fused, lanczos_plain
-from ttnx_torch.kernels.local_cg import (bicgstab_solve_fused,
+from ttnx_torch.kernels.local_cg import (bicgstab_route,
+                                         bicgstab_solve_fused,
                                          bicgstab_solve_plain,
                                          cg_solve_fused, cg_solve_plain)
 from ttnx_torch.kernels.local_cg_mf import (cg_matfree_batched_plain,
@@ -451,7 +457,32 @@ def test_bicgstab_kernel(cuda, dtype, M):
     got = bicgstab_solve_fused(K, rhs, iters=16)
     torch.cuda.synchronize()
     assert bicgstab_solve_fused.launches == before + 1
+    assert bicgstab_solve_fused.route == bicgstab_route(dtype, M)
     _close(got, bicgstab_solve_plain(K, rhs, iters=16),
+           _tol(dtype, loose=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,M,route", [
+    (torch.float32, 5, "cluster"), (torch.float32, 37, "cluster"),
+    (torch.float32, 512, "cluster"), (torch.float32, 668, "cluster"),
+    (torch.float32, 669, "l2"), (torch.float64, 512, "l2")])
+def test_bicgstab_kernel_routes(cuda, dtype, M, route):
+    """B10 on each route, at its edges (a CTA of the cluster owning no
+    row at M = 5, the largest cluster M and one past it), held against
+    the plain version, and deterministic: two launches give the same
+    bits."""
+    rng = np.random.default_rng(M + 1)
+    K, rhs = _on(cuda, dtype, rng.standard_normal((M, M)) / np.sqrt(M)
+                 + 2.0 * np.eye(M), rng.standard_normal(M))
+    iters = 3 if M < 8 else 32
+    assert bicgstab_route(dtype, M) == route
+    got = bicgstab_solve_fused(K, rhs, iters=iters)
+    again = bicgstab_solve_fused(K, rhs, iters=iters)
+    torch.cuda.synchronize()
+    assert bicgstab_solve_fused.route == route
+    assert torch.equal(got, again)
+    _close(got, bicgstab_solve_plain(K, rhs, iters=iters),
            _tol(dtype, loose=True))
 
 
@@ -508,9 +539,37 @@ def test_matmul_chain_kernel(cuda, dtype, B, m, k):
     got = matmul_chain(x, w, iters=8)
     torch.cuda.synchronize()
     assert matmul_chain.launches == before + 1
+    assert matmul_chain.route == matmul_chain_route(dtype, m, k)
     assert got.dtype == dtype
     _close(got.float(), matmul_chain_plain(x, w, iters=8).float(),
            _mm_tol(dtype, 8))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,m,k,route", [
+    (2, 65, 64, "wgmma"), (3, 70, 100, "wgmma"), (2, 128, 17, "wgmma"),
+    (2, 40, 160, "wmma")])
+def test_matmul_chain_kernel_bf16_routes(cuda, B, m, k, route):
+    """bf16 B12 on both routes: wgmma at k <= 128 (padded to 64 or 128,
+    rows to strips of 64), ragged, and wmma past it."""
+    assert matmul_chain_route(torch.bfloat16, m, k) == route
+    test_matmul_chain_kernel(cuda, torch.bfloat16, B, m, k)
+    assert matmul_chain.route == route
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,m,k", [(16, 128, 128), (8, 100, 64)])
+def test_matmul_chain_kernel_norm_keeping(cuda, B, m, k):
+    """The bench's 1024 iterations on an input whose iterate keeps its
+    norm (w w^T = I exactly in bf16): every iteration counts."""
+    p = norm_keeping_matmul_problem(cuda, batch=B, m=m, k=k, seed=k)
+    got = matmul_chain(p["x"], p["w"], iters=1024)
+    torch.cuda.synchronize()
+    assert matmul_chain.route == "wgmma"
+    ref = matmul_chain_plain(p["x"], p["w"], iters=1024)
+    got, ref, x = got.float(), ref.float(), p["x"].float()
+    assert float((got - ref).norm() / ref.norm()) <= 1e-3
+    assert abs(float(got.norm() / x.norm()) - 1.0) <= 1e-2
 
 
 @pytest.mark.cuda

@@ -40,6 +40,27 @@
 // take the wmma kernel below (merge_resplit_kernel); the wrapper chooses
 // by shape.
 //
+// Design of B12 in bf16 (matmul_chain_wgmma_kernel, k <= 128): B11's.
+// Rows of the iterate are independent (row i evolves as x_i <- bf16(x_i
+// w)), so one warpgroup (a block of 128 threads) owns a 64-row strip and
+// runs every iteration with no block barrier after the first load. w sits
+// read-only in shared memory, transposed once into wgmma's K-major layout
+// with the 128-byte swizzle: at k = 128 two 64-wide atoms along K, 32 KB.
+// The iterate never leaves registers: an iteration is k/16 wgmma
+// m64n128k16 with A from registers into 64 f32 accumulators, one commit
+// and wait, and round_to_a, which turns accumulator columns 16q..16q+15
+// into, register for register, k-step q of the next product. 33 KB of
+// shared memory and at most 128 registers a thread: four warpgroups an SM,
+// whose products interleave on the tensor cores while one of them rounds.
+// Each strip loads w for itself (B11's choice): the 32 KB a strip are 268
+// MB from L2 at the bench shape, under 1 % of the chain's time, and the
+// four warpgroups of an SM never wait on one another, as two strips
+// sharing one block's w would at its load. Rows are padded to 64 and k to
+// 64 or 128 (wgmma's N of the two instantiations) with zeros, and the
+// padding stays zero through the chain. Larger k, whose 64 + 32 registers
+// of accumulators and operand no longer fit, take the wmma kernel below
+// (matmul_chain_kernel); the wrapper chooses by shape.
+//
 // Design of B13 in bf16 (merge_mma_kernel): one block of 256 threads a
 // problem, two blocks an SM, so one block's loads overlap another's
 // stores and the hardware scheduler balances the last wave. A and B load
@@ -52,7 +73,7 @@
 // staging rows (72,704 bytes at the bench shape) do not fit one block
 // takes merge_kernel below.
 //
-// B12 and the other routes (the TPU kernels' VMEM residency on one SM):
+// The other routes (the TPU kernels' VMEM residency on one SM):
 // one block of 256 threads a problem loads its operands into shared
 // memory once, keeps the iterate and the intermediate there for all
 // iterations, and writes the result once. bf16 runs on the tensor cores
@@ -63,8 +84,9 @@
 // multiples of 32 with zeros (the padding stays zero through the chain)
 // and their rows skewed by 16 bytes against bank conflicts. f32 runs on
 // the CUDA cores in IEEE f32 (never TF32) through gemm_block (common.cuh).
-// At the bench shapes a bf16 B12 block holds 110 KB of shared memory, two
-// blocks to an SM. A problem whose operands exceed 227 KB is refused.
+// A bf16 B12 block of this route holds 110 KB of shared memory at (128,
+// 128), two blocks to an SM. A problem whose operands exceed 227 KB is
+// refused.
 #include <cuda_bf16.h>
 #include <mma.h>
 #include <stdint.h>
@@ -440,6 +462,43 @@ __device__ __forceinline__ void wgmma_n16(float* d, const uint32_t* a,
         "r"(accumulate));
 }
 
+// The same with 128 output columns: d (64 x 128, f32), 64 registers a
+// thread.
+__device__ __forceinline__ void wgmma_n128(float* d, const uint32_t* a,
+                                           uint64_t desc, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(accumulate));
+}
+
 // ---------------------------------------------------------------------------
 // B11 in bf16: one warpgroup a 64-row strip, the iterate in registers
 // ---------------------------------------------------------------------------
@@ -574,6 +633,106 @@ __global__ void __launch_bounds__(kWgThreads, 4)
     put(ra, c1 + 1, hi_bf16(af[kk][2]));
     put(rb, c1, lo_bf16(af[kk][3]));
     put(rb, c1 + 1, hi_bf16(af[kk][3]));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// B12 in bf16: one warpgroup a 64-row strip, the iterate in registers
+// ---------------------------------------------------------------------------
+
+constexpr int kMatmulWgmmaMaxK = 128;  // k of the wgmma route
+
+// 1 KB to align the swizzle atoms, then w^T: kp / 64 atoms of kp rows x 64
+// columns, in bytes
+__host__ __device__ inline size_t matmul_wgmma_smem(int kp) {
+  return 1024 + (size_t)kp * kp * sizeof(bf16);
+}
+
+template <int KP>
+__global__ void __launch_bounds__(kWgThreads, 4)
+    matmul_chain_wgmma_kernel(const bf16* x, const bf16* w, bf16* out, int m,
+                              int k, int iters) {
+  constexpr int KS = KP / 16;      // k-steps a product, n16 tiles of x @ w
+  constexpr int ATOM = KP * 128;   // bytes of one 64-wide K atom of w^T
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* base =
+      smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  bf16* wT = reinterpret_cast<bf16*>(base);  // (KP / 64, KP, 64)
+  const int tid = threadIdx.x;
+  const int strips = (m + kChainRows - 1) / kChainRows;
+  const size_t p = blockIdx.x / strips;
+  const int row0 = (blockIdx.x % strips) * kChainRows;
+
+  // w^T, zero-padded, once: w (k, k) element (c, j) at row j, column c % 64
+  // of atom c / 64
+  for (int e = tid; e < KP * KP / 8; e += kWgThreads)
+    reinterpret_cast<uint4*>(base)[e] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+  const bf16* wp = w + p * k * k;
+  for (int e = tid; e < k * k; e += kWgThreads) {
+    const int c = e / k, j = e % k;
+    wT[(c / 64) * (ATOM / 2) + sw128(j, c % 64)] = wp[e];
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  // this thread's rows of the strip and its A fragments of the iterate
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int ra = row0 + warp * 16 + g, rb = ra + 8;
+  const bf16* xp = x + p * m * k;
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  auto at = [&](int i, int j) {
+    return (i < m && j < k) ? xp[(size_t)i * k + j] : zero;
+  };
+  uint32_t af[KS][4];
+#pragma unroll
+  for (int q = 0; q < KS; ++q) {
+    const int c0 = 16 * q + 2 * t, c1 = c0 + 8;
+    af[q][0] = pair_bf16(at(ra, c0), at(ra, c0 + 1));
+    af[q][1] = pair_bf16(at(rb, c0), at(rb, c0 + 1));
+    af[q][2] = pair_bf16(at(ra, c1), at(ra, c1 + 1));
+    af[q][3] = pair_bf16(at(rb, c1), at(rb, c1 + 1));
+  }
+
+  // k-step q reads K columns 16 q .. 16 q + 15: atom q / 4, 32 bytes a step
+  // inside it (the start address field holds the byte address / 16)
+  const uint64_t desc0 = desc_sw128(smem_u32(wT));
+  for (int it = 0; it < iters; ++it) {
+    float acc[KP / 2];  // x @ w, f32
+    wg_fence();
+#pragma unroll
+    for (int q = 0; q < KS; ++q) {
+      const uint64_t desc = desc0 + (((q / 4) * ATOM + (q % 4) * 32) >> 4);
+      if constexpr (KP == 128) {
+        wgmma_n128(acc, af[q], desc, q > 0);
+      } else {
+        wgmma_n64(acc, af[q], desc, q > 0);
+      }
+    }
+    wg_commit();
+    wg_wait_all();
+    pin<KP / 2>(acc);
+    pin<4 * KS>(&af[0][0]);
+    // accumulator columns 16 q .. 16 q + 15 are k-step q of the next product
+#pragma unroll
+    for (int q = 0; q < KS; ++q) round_to_a(acc + 8 * q, af[q]);
+  }
+
+  bf16* op = out + p * m * k;
+  auto put = [&](int i, int j, bf16 v) {
+    if (i < m && j < k) op[(size_t)i * k + j] = v;
+  };
+#pragma unroll
+  for (int q = 0; q < KS; ++q) {
+    const int c0 = 16 * q + 2 * t, c1 = c0 + 8;
+    put(ra, c0, lo_bf16(af[q][0]));
+    put(ra, c0 + 1, hi_bf16(af[q][0]));
+    put(rb, c0, lo_bf16(af[q][1]));
+    put(rb, c0 + 1, hi_bf16(af[q][1]));
+    put(ra, c1, lo_bf16(af[q][2]));
+    put(ra, c1 + 1, hi_bf16(af[q][2]));
+    put(rb, c1, lo_bf16(af[q][3]));
+    put(rb, c1 + 1, hi_bf16(af[q][3]));
   }
 }
 
@@ -767,6 +926,27 @@ int merge_resplit_chain_wgmma(const bf16* a, const bf16* b, const bf16* w,
   }
 }
 
+template <int KP>
+int matmul_wgmma(const bf16* x, const bf16* w, bf16* out, int B, int m,
+                 int k, int iters, cudaStream_t s) {
+  const size_t smem = matmul_wgmma_smem(KP);
+  const long long blocks = (long long)B * ((m + kChainRows - 1) / kChainRows);
+  if (blocks > 0x7fffffff) return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(matmul_chain_wgmma_kernel<KP>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  matmul_chain_wgmma_kernel<KP><<<(int)blocks, kWgThreads, smem, s>>>(
+      x, w, out, m, k, iters);
+  return (int)cudaGetLastError();
+}
+
+int matmul_chain_wgmma(const bf16* x, const bf16* w, bf16* out, int B, int m,
+                       int k, int iters, cudaStream_t s) {
+  if (B < 1 || m < 1 || k < 1 || k > kMatmulWgmmaMaxK || iters < 0)
+    return (int)cudaErrorInvalidValue;
+  return k <= 64 ? matmul_wgmma<64>(x, w, out, B, m, k, iters, s)
+                 : matmul_wgmma<128>(x, w, out, B, m, k, iters, s);
+}
+
 int two_site_merge_mma(const bf16* a, const bf16* b, float* out, int B,
                        int m, int k, int n, cudaStream_t s) {
   if (m < 1 || k < 1 || n < 1) return (int)cudaErrorInvalidValue;
@@ -813,6 +993,13 @@ extern "C" int ttnx_merge_resplit_chain_wgmma_bf16(
   return merge_resplit_chain_wgmma((const bf16*)a, (const bf16*)b,
                                    (const bf16*)w, (bf16*)out, B, m, r, n,
                                    iters, (cudaStream_t)stream);
+}
+
+extern "C" int ttnx_matmul_chain_wgmma_bf16(const void* x, const void* w,
+                                            void* out, int B, int m, int k,
+                                            int iters, void* stream) {
+  return matmul_chain_wgmma((const bf16*)x, (const bf16*)w, (bf16*)out, B, m,
+                            k, iters, (cudaStream_t)stream);
 }
 
 extern "C" int ttnx_two_site_merge_mma_bf16(const void* a, const void* b,

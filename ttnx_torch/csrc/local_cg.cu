@@ -19,6 +19,7 @@
 // order (deterministic). Later work: split K's rows over a cluster of
 // blocks so each SM keeps its share in shared memory.
 #include "common.cuh"
+#include "dense_cluster.cuh"
 
 namespace ttnx_cg {
 using namespace ttnx;
@@ -125,12 +126,32 @@ int cg_solve(const T* K, const T* b, const T* x0, T* out, int M, int iters,
 // strictly dependent, so a solve costs iters x (two passes of one SM over
 // K from L2 + four block-wide barriers) plus one launch.
 //
-// Design (B3's and B9's): one block of 1024 threads runs every iteration
-// in one launch, with no host sync. K stays in device memory and is
-// re-read from L2 by B9's multi-row matvec (kMatvecRows rows a warp,
-// unrolled column loop). The seven iterates (x, r, rhat, p, v, s, t) live
-// in shared memory; every inner product is a block reduction in a fixed
-// order, so a call is deterministic.
+// Design of route "cluster" (bicgstab_cluster_kernel, f32, M <= 668):
+// one cluster of C = 8 CTAs (portable), 256 threads each, on the engine
+// of dense_cluster.cuh. CTA c owns rows [c R, c R + R) of K, R = ceil(M /
+// C) (64 rows, 128 KB at M = 512), loaded into its shared memory once by
+// evict-first cp.async and read from there by both matvecs of every
+// iteration; it owns the same slice of x, r, rhat, v and t, and keeps
+// full-length p and s, the vectors a matvec reads. An iteration runs five
+// cluster barriers, each carrying what its consumer needs: (1) the
+// partials of rhat.v, (2) every CTA's slice of s pushed into every copy,
+// (3) the partials of t.s and t.t in one exchange, (4) those of rhat.r,
+// (5) every slice of p pushed. Each slot array and full vector is
+// written at least one barrier after its last reader has passed, so none
+// needs a second buffer; no CTA reads a partner's memory, and the last
+// barrier follows the last push, so no CTA exits while a partner still
+// writes into it. Every CTA sums the partials in rank order, so all hold
+// the same alpha, omega and beta and a call is deterministic. A CTA's 64
+// rows at 4 B are 2048 clocks of its SM's shared-memory bandwidth an
+// iteration, against two passes of one SM over 1 MB of L2.
+//
+// Design of route "l2" (bicgstab_kernel: f64, M > 668; B3's and B9's):
+// one block of 1024 threads runs every iteration in one launch, with no
+// host sync. K stays in device memory and is re-read from L2 by B9's
+// multi-row matvec (kMatvecRows rows a warp, unrolled column loop). The
+// seven iterates (x, r, rhat, p, v, s, t) live in shared memory; every
+// inner product is a block reduction in a fixed order, so a call is
+// deterministic.
 template <typename T>
 __device__ __forceinline__ T safe_div(T a, T c) {
   return fabs(c) > T(0) ? a / c : T(0);
@@ -201,9 +222,168 @@ int bicgstab(const T* K, const T* b, T* out, int M, int iters,
   bicgstab_kernel<T><<<1, kThreads, smem, st>>>(K, b, out, M, iters);
   return (int)cudaGetLastError();
 }
+
+// ---------------------------------------------------------------------------
+// Route "cluster": B10 in f32 on a cluster of C CTAs, K resident in their
+// shared memory
+// ---------------------------------------------------------------------------
+
+constexpr int kClusterThreads = 256;
+constexpr int kCluster = 8;  // CTAs a cluster: the portable maximum
+
+extern __shared__ __align__(16) float bcl_smem[];  // one CTA's regions
+
+__host__ __device__ inline int up4(int x) { return (x + 3) / 4 * 4; }
+
+// Shared memory of one CTA in bytes: its rows of K (ceil(M / C) x ld),
+// full p and s (ld each), its slices of x, r, rhat, v, t and four slot
+// arrays of C partials; ld = M rounded up to float4s.
+__host__ __device__ inline size_t bicgstab_cluster_smem(int M, int C) {
+  const int rpc = (M + C - 1) / C;
+  return ((size_t)rpc * up4(M) + 2 * up4(M) + 5 * up4(rpc) + 4 * C) *
+         sizeof(float);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kClusterThreads)
+    bicgstab_cluster_kernel(const float* K, const float* b, float* out,
+                            int M, int iters) {
+  using namespace ttnx_cluster;
+  const int rank = cluster_rank();
+  const int ld = up4(M), rpc = (M + C - 1) / C, rp4 = up4(rpc);
+  const int row0 = rank * rpc;
+  const int rows = M - row0 < rpc ? (M - row0 > 0 ? M - row0 : 0) : rpc;
+  float* Ks = bcl_smem;                // (rows, ld): K[row0 + i, :]
+  float* p = Ks + (size_t)rpc * ld;    // full length
+  float* s = p + ld;                   // full length
+  float* x = s + ld;                   // this CTA's slices, rp4 each
+  float* r = x + rp4;
+  float* rh = r + rp4;
+  float* v = rh + rp4;
+  float* t = v + rp4;
+  float* slot_a = t + rp4;  // partials: rhat.v
+  float* slot_ts = slot_a + C;  // t.s
+  float* slot_tt = slot_ts + C;  // t.t
+  float* slot_r = slot_tt + C;  // rhat.r
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+  const bool w0 = tid < 32;  // warp 0 updates the slices and reduces
+
+  const float* Kp = K + (size_t)row0 * M;
+  if (M % 4 == 0 && ((size_t)K & 15) == 0) {
+    const int q4 = M / 4;
+    for (int e = tid; e < rows * q4; e += nt)
+      copy16(Ks + (size_t)(e / q4) * ld + (e % q4) * 4, Kp + (size_t)e * 4);
+  } else {
+    for (int e = tid; e < rows * ld; e += nt) {
+      const int i = e / ld, j = e % ld;
+      Ks[e] = j < M ? Kp[(size_t)i * M + j] : 0.f;
+    }
+  }
+  for (int j = tid; j < ld; j += nt) {
+    p[j] = j < M ? b[j] : 0.f;
+    s[j] = 0.f;
+  }
+  for (int i = tid; i < rows; i += nt) {
+    x[i] = 0.f;
+    r[i] = b[row0 + i];
+    rh[i] = b[row0 + i];
+  }
+  copy_wait();
+  cluster_sync();  // every CTA runs and holds its rows: DSMEM from here on
+  if (w0) push_partial<C>(slot_r, warp_dot(rh, r, rows), rank);
+  cluster_sync();
+  float rho = cluster_sum<C>(slot_r);
+
+  for (int it = 0; it < iters; ++it) {
+    slice_matvec(Ks, p, v, rows, ld);  // v = K p
+    __syncthreads();
+    if (w0) push_partial<C>(slot_a, warp_dot(rh, v, rows), rank);
+    cluster_sync();  // (1)
+    const float alpha = safe_div(rho, cluster_sum<C>(slot_a));
+    if (w0)
+      for (int i = lane; i < rows; i += 32)
+        push_all<C>(s, row0 + i, r[i] - alpha * v[i]);
+    cluster_sync();  // (2) s complete in every CTA
+    slice_matvec(Ks, s, t, rows, ld);  // t = K s
+    __syncthreads();
+    if (w0) {
+      push_partial<C>(slot_ts, warp_dot(t, s + row0, rows), rank);
+      push_partial<C>(slot_tt, warp_dot(t, t, rows), rank);
+    }
+    cluster_sync();  // (3)
+    const float omega =
+        safe_div(cluster_sum<C>(slot_ts), cluster_sum<C>(slot_tt));
+    if (w0) {
+      for (int i = lane; i < rows; i += 32) {
+        const float si = s[row0 + i];
+        x[i] = x[i] + alpha * p[row0 + i] + omega * si;
+        r[i] = si - omega * t[i];
+      }
+      push_partial<C>(slot_r, warp_dot(rh, r, rows), rank);  // same lanes
+    }
+    cluster_sync();  // (4)
+    const float rho_new = cluster_sum<C>(slot_r);
+    const float beta = safe_div(rho_new, rho) * safe_div(alpha, omega);
+    if (w0)
+      for (int i = lane; i < rows; i += 32) {
+        const int j = row0 + i;
+        push_all<C>(p, j, r[i] + beta * (p[j] - omega * v[i]));
+      }
+    rho = rho_new;
+    cluster_sync();  // (5) p complete in every CTA; no push after the last
+  }
+  for (int i = tid; i < rows; i += nt) out[row0 + i] = x[i];
+}
+
+// One cluster of C CTAs. The first launch at a shared-memory size asks the
+// driver whether such a cluster fits an SM group at all (none fits: an
+// error, never another route).
+template <int C>
+int bicgstab_cluster(const float* K, const float* b, float* out, int M,
+                     int iters, cudaStream_t st) {
+  const size_t smem = bicgstab_cluster_smem(M, C);
+  if (M < 1 || iters < 0 || smem > kSmemBlock)
+    return (int)cudaErrorInvalidValue;
+  void (*kernel)(const float*, const float*, float*, int, int) =
+      bicgstab_cluster_kernel<C>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, 1, 1);
+  cfg.blockDim = dim3(kClusterThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  static size_t fits = 0;  // the largest size a cluster was found to fit at
+  if (smem > fits) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+    fits = smem;
+  }
+  err = cudaLaunchKernelEx(&cfg, kernel, K, b, out, M, iters);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
 }  // namespace ttnx_cg
 
 using namespace ttnx_cg;
+
+extern "C" int ttnx_bicgstab_cluster_f32(const void* K, const void* b,
+                                         void* out, int M, int iters,
+                                         void* stream) {
+  return bicgstab_cluster<kCluster>((const float*)K, (const float*)b,
+                                    (float*)out, M, iters,
+                                    (cudaStream_t)stream);
+}
 
 extern "C" int ttnx_cg_solve_f32(const void* K, const void* b, const void* x0,
                                  void* out, int M, int iters, int warm,

@@ -24,9 +24,10 @@ with ``dense_cn_reference`` its sparse-LU oracle;
 ``contraction_problem(device)`` and ``matmul_ceiling_problem(device)``
 build the inputs of the rank-64 core contraction chain (kernels B11, B13)
 and its matmul ceiling (B12) as ``bench.py`` does;
-``norm_keeping_contraction_problem(device)`` is a chain input whose iterate
-keeps its norm, so B11 can be held to its plain version at the bench's
-2048 iterations.
+``norm_keeping_contraction_problem(device)`` and
+``norm_keeping_matmul_problem(device)`` are chain inputs whose iterate
+keeps its norm, so B11 and B12 can be held to their plain versions at the
+bench's 2048 and 1024 iterations.
 """
 
 from __future__ import annotations
@@ -49,7 +50,7 @@ __all__ = ["entry", "flagship_cn_step", "three_mode_state",
            "convection_cn_step",
            "convection_cn_operators", "dense_cn_reference",
            "contraction_problem", "norm_keeping_contraction_problem",
-           "matmul_ceiling_problem"]
+           "matmul_ceiling_problem", "norm_keeping_matmul_problem"]
 
 
 def flagship_cn_step(device, rmax: int = 16, d: int = 12, h: float = 1e-9,
@@ -75,7 +76,7 @@ def entry(device):
     return step_fn, (u_stack,)
 
 
-def three_mode_state(d: int, hg: float, device="cpu"):
+def three_mode_state(d: int, hg: float, device):
     """Sum of three Dirichlet eigenmodes of the grid Laplacian (rank 6) on
     the interior grid, float64."""
 
@@ -204,7 +205,7 @@ def tdvp_problem(device, d: int = 10, rmax: int = 8, *,
                 lam1=0.1 * (2 - 2 * np.cos(np.pi * hg)) / hg ** 2)
 
 
-def convection_operator(d: int, c: float, device="cpu"):
+def convection_operator(d: int, c: float, device):
     """``A = -(1/hg^2) toeplitz_to_qtto(2, -1, -1) + (c/(2 hg))
     toeplitz_to_qtto(0, 1, -1)`` on the interior grid ``hg = 1/(2^d + 1)``:
     diffusion and central convection (non-symmetric, MPO rank 6)."""
@@ -319,4 +320,27 @@ def matmul_ceiling_problem(device, batch: int = 4096, m: int = 128,
     x = rng.standard_normal((batch, m, k)) * 0.1
     w = np.linalg.qr(rng.standard_normal((batch, k, k)))[0]
     return {k_: torch.as_tensor(v).to(device, dtype)
+            for k_, v in (("x", x), ("w", w))}
+
+
+def norm_keeping_matmul_problem(device, batch: int = 4096, m: int = 128,
+                                k: int = 128, seed: int = 2,
+                                dtype=torch.bfloat16):
+    """Inputs of the matmul chain whose iterate keeps its norm: ``x (batch,
+    m, k)`` (0.1 N(0, 1)) as in :func:`matmul_ceiling_problem`, and ``w =
+    P blockdiag(H / 8, ...) S`` per problem, ``H`` the 64 x 64 Sylvester
+    Hadamard matrix, ``P`` a row permutation and ``S`` diagonal signs from
+    numpy's ``default_rng(seed)``. Every entry of ``w`` is 0 or +-1/8 and
+    ``w w^T = I`` exactly in bf16, so the chain moves the iterate only by
+    its roundings (the bench input decays to zero). ``k`` must be a
+    multiple of 64. Returns a dict of the two."""
+    if k % 64:
+        raise ValueError(f"k={k} is not a multiple of 64")
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((batch, m, k)) * 0.1
+    blocks = np.kron(np.eye(k // 64), _sylvester_hadamard(64) / 8.0)
+    perm = np.argsort(rng.random((batch, k)), axis=1)
+    signs = rng.choice((-1.0, 1.0), size=(batch, 1, k))
+    w = blocks[perm] * signs
+    return {k_: torch.as_tensor(np.ascontiguousarray(v)).to(device, dtype)
             for k_, v in (("x", x), ("w", w))}

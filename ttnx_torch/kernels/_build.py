@@ -15,8 +15,9 @@ entry point takes ``c_void_p`` for pointers and the stream, ``c_int`` for
 sizes, and returns ``cudaGetLastError()`` after its launches. Each entry
 point exists for the dtype suffixes its signature lists: ``f32`` and
 ``f64`` for the linear-algebra kernels, ``f32`` alone for the
-site-resident routes of B7 and B4/B5, ``bf16`` and ``f32`` for the
-contraction kernels, ``bf16`` alone for their tensor-core routes.
+site-resident routes of B7 and B4/B5 and the cluster route of B10,
+``bf16`` and ``f32`` for the contraction kernels, ``bf16`` alone for
+their tensor-core routes.
 """
 
 from __future__ import annotations
@@ -57,6 +58,7 @@ _SIGNATURES = {
     "cg_solve": ([P, P, P, P, I, I, I, P], REAL),
     # K, rhs, out, M, iters, stream
     "bicgstab": ([P, P, P, I, I, P], REAL),
+    "bicgstab_cluster": ([P, P, P, I, I, P], ("f32",)),
     # L, Ac, Renv, rhs, mask, x0, out, scratch, R, RA, n, iters, warm, stream
     "cg_matfree": ([P, P, P, P, P, P, P, P, I, I, I, I, I, P], REAL),
     # the same with B first among the sizes
@@ -80,6 +82,7 @@ _SIGNATURES = {
     "two_site_merge_mma": ([P, P, P, I, I, I, I, P], ("bf16",)),
     # x, w, out, B, m, k, iters, stream
     "matmul_chain": ([P, P, P, I, I, I, I, P], MM),
+    "matmul_chain_wgmma": ([P, P, P, I, I, I, I, P], ("bf16",)),
     # a, b, w, out, B, m, r, n, iters, stream
     "merge_resplit_chain": ([P, P, P, P, I, I, I, I, I, P], MM),
     "merge_resplit_chain_wgmma": ([P, P, P, P, I, I, I, I, I, P],

@@ -19,13 +19,17 @@ products of the operands and round where the kernels do. The TPU kernels'
 counterpart here. The callers pass orthonormal ``b``, ``w`` so the
 normalization-free chains stay bounded.
 
-B11 and B13 pick their kernel by dtype and shape, never on a failure
-(:func:`chain_route`, :func:`merge_route`); the route of the last launch
-is kept in the wrapper's ``route`` attribute:
+Each wrapper picks its kernel by dtype and shape, never on a failure
+(:func:`chain_route`, :func:`matmul_chain_route`, :func:`merge_route`);
+the route of the last launch is kept in the wrapper's ``route``
+attribute:
 
 * B11 ``"wgmma"`` — bf16 with ``r <= 64`` and ``n <= 512`` (the iterate
   in registers, wgmma); ``"wmma"`` — other bf16 shapes; ``"f32"`` — IEEE
   f32 on the CUDA cores.
+* B12 ``"wgmma"`` — bf16 with ``k <= 128`` (the same design: the iterate
+  in registers, one wgmma m64n128k16 a k-step); ``"wmma"`` — larger bf16;
+  ``"f32"``.
 * B13 ``"mma"`` — bf16 whose operands and staging rows fit one block's
   shared memory (cp.async, mma.sync, whole-row stores); ``"wmma"`` —
   larger bf16; ``"f32"``.
@@ -40,10 +44,12 @@ from ttnx_torch.kernels.dispatch import counted, require_mm_type, use_kernel
 
 __all__ = ["two_site_merge", "two_site_merge_plain", "matmul_chain",
            "matmul_chain_plain", "merge_resplit_chain",
-           "merge_resplit_chain_plain", "chain_route", "merge_route"]
+           "merge_resplit_chain_plain", "chain_route", "matmul_chain_route",
+           "merge_route"]
 
 SMEM_BLOCK = 232448  # shared memory one block can use on the H100
 CHAIN_WGMMA_MAX_R, CHAIN_WGMMA_MAX_N = 64, 512
+MATMUL_WGMMA_MAX_K = 128  # 64 accumulators + 32 operand registers a thread
 
 
 def _up16(x: int) -> int:
@@ -58,6 +64,15 @@ def chain_route(dtype, r: int, n: int) -> str:
     if r <= CHAIN_WGMMA_MAX_R and n <= CHAIN_WGMMA_MAX_N:
         return "wgmma"
     return "wmma"
+
+
+def matmul_chain_route(dtype, m: int, k: int) -> str:
+    """The kernel of :func:`matmul_chain` for ``x (B, m, k)``, ``w (B, k,
+    k)``: ``"wgmma"``, ``"wmma"`` or ``"f32"``; ``m`` is any (rows go in
+    strips of 64)."""
+    if dtype == torch.float32:
+        return "f32"
+    return "wgmma" if k <= MATMUL_WGMMA_MAX_K else "wmma"
 
 
 def merge_route(dtype, m: int, k: int, n: int) -> str:
@@ -128,10 +143,16 @@ def matmul_chain(x, w, iters: int = 8):
         return matmul_chain_plain(x, w, iters)
     x, w = x.contiguous(), w.contiguous()
     out = torch.empty_like(x)
-    _build.call("matmul_chain", x.dtype, x.data_ptr(), w.data_ptr(),
-                out.data_ptr(), B, m, k, int(iters))
+    route = matmul_chain_route(x.dtype, m, k)
+    _build.call("matmul_chain_wgmma" if route == "wgmma" else "matmul_chain",
+                x.dtype, x.data_ptr(), w.data_ptr(), out.data_ptr(), B, m, k,
+                int(iters))
     matmul_chain.launches += 1
+    matmul_chain.route = route
     return out
+
+
+matmul_chain.route = None
 
 
 def merge_resplit_chain_plain(a, b, w, iters: int = 8):

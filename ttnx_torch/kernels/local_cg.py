@@ -11,6 +11,13 @@ by BiCGStab, always from a cold start as the JAX kernel does.
 
 ``x0`` and ``iters`` are keyword-only (the JAX twin takes ``x0`` as its
 third positional parameter, ahead of ``iters``).
+
+B10 picks its kernel by dtype and size, never on a failure
+(:func:`bicgstab_route`; the last launch's route is
+``bicgstab_solve_fused.route``): ``"cluster"`` — f32 with ``M <=
+CLUSTER_MAX_M``, one cluster of 8 CTAs holding K's rows in their shared
+memory (``csrc/dense_cluster.cuh``); ``"l2"`` — f64 and larger M, one
+block streaming K from L2.
 """
 
 from __future__ import annotations
@@ -21,7 +28,33 @@ from ttnx_torch.kernels import _build
 from ttnx_torch.kernels.dispatch import counted, require_real, use_kernel
 
 __all__ = ["cg_solve_fused", "cg_solve_plain", "bicgstab_solve_fused",
-           "bicgstab_solve_plain"]
+           "bicgstab_solve_plain", "bicgstab_route", "cluster_smem"]
+
+SMEM_BLOCK = 232448  # shared memory one block can use on the H100
+CLUSTER = 8          # CTAs of the cluster route: the portable maximum
+
+
+def _up4(x: int) -> int:
+    return (x + 3) // 4 * 4
+
+
+def cluster_smem(M: int, C: int = CLUSTER) -> int:
+    """Bytes of shared memory one CTA of the cluster route holds for K (M,
+    M): its ``ceil(M / C)`` rows of K and full p and s (rows of ``up4(M)``
+    floats), its slices of x, r, rhat, v, t and four slot arrays of C."""
+    rpc = (M + C - 1) // C
+    return 4 * (rpc * _up4(M) + 2 * _up4(M) + 5 * _up4(rpc) + 4 * C)
+
+
+CLUSTER_MAX_M = max(M for M in range(1, 1025)
+                    if cluster_smem(M) <= SMEM_BLOCK)  # 668
+
+
+def bicgstab_route(dtype, M: int) -> str:
+    """The kernel of :func:`bicgstab_solve_fused` for ``K (M, M)``:
+    ``"cluster"`` or ``"l2"``."""
+    return "cluster" if dtype == torch.float32 and M <= CLUSTER_MAX_M \
+        else "l2"
 
 
 def _safe_div(a, c):
@@ -114,7 +147,13 @@ def bicgstab_solve_fused(K, rhs, *, iters: int = 32):
                          "iters >= 0")
     K, rhs = K.contiguous(), rhs.contiguous()
     out = torch.empty_like(rhs)
-    _build.call("bicgstab", K.dtype, K.data_ptr(), rhs.data_ptr(),
-                out.data_ptr(), M, int(iters))
+    route = bicgstab_route(K.dtype, M)
+    _build.call("bicgstab_cluster" if route == "cluster" else "bicgstab",
+                K.dtype, K.data_ptr(), rhs.data_ptr(), out.data_ptr(), M,
+                int(iters))
     bicgstab_solve_fused.launches += 1
+    bicgstab_solve_fused.route = route
     return out
+
+
+bicgstab_solve_fused.route = None
