@@ -14,17 +14,22 @@ bf16, (4096, 128, 128)) and on the K the convection CN step assembles (f32,
 M = 512: local solve ``CONV_SITE`` of ``chip_smoke.py`` and all 22 of the
 step):
 
-* ``--step0``: PR 4's kernels only, each split by its own ``iters`` (B12
-  0 / 8 / 64 / 1024, B10 0 / 16 / 32; CUDA events, median of 3, warm);
+* ``--step0``: the kernels of routes ``wmma`` (B12) and ``l2`` (B10)
+  only, each split by its own ``iters`` (B12 0 / 8 / 64 / 1024, B10 0 /
+  16 / 32; CUDA events, median of 3, warm);
   the cost of one cluster barrier (an empty kernel on a cluster of 8 CTAs
   running N rounds of ``barrier.cluster.arrive.release`` +
   ``wait.acquire``, alone, with one 256-byte DSMEM store a CTA a round,
   and as cooperative groups' ``map_shared_rank`` store + ``sync()``); and
-  the new kernels checked against their plain versions, where the source
-  has them, untimed.
-* default: the checks, then each new kernel timed interleaved with PR 4's
-  (new, old, old, new), the new kernels' own splits, B10 over the 22 local
-  solves of a step, then the paths (alone with ``--paths``).
+  the new kernels checked against their plain versions, untimed.
+* default: the checks, then each new kernel timed interleaved with the
+  old route's (new, old, old, new), the new kernels' own splits, B10 over
+  the 22 local solves of a step, then the paths (alone with ``--paths``).
+* ``--variants``: B10's cluster kernel and the variants of ``VARIANTS``
+  (text edits of ``local_cg.cu`` / ``dense_cluster.cuh``, one library
+  each, registers and spills printed) checked against the plain version
+  and timed interleaved at ``CONV_SITE`` (base, variants, then the
+  reverse).
 * ``--paths``: the convection CN step (``chip_smoke.py`` phase 8's
   settings, ms/step: median of 3 chains of 8 steps) with B10's route
   forced to ``l2`` and as chosen (``cluster``), interleaved: cluster, l2,
@@ -55,6 +60,32 @@ WORK = ROOT / "build" / "probe_chain_bicg"
 SOURCES = ("gram_chain.cu", "env_chain.cu", "local_cg.cu", "contraction.cu")
 BF16_ULP = 2.0 ** -8
 
+# B10 cluster variants: name -> [(file, old text, new text), ...]; the
+# edits must match the source exactly or the probe stops
+PUSH_S = ("local_cg.cu", """    if (w0)
+      for (int i = lane; i < rows; i += 32)
+        push_all<C>(s, row0 + i, r[i] - alpha * v[i]);""",
+          """    for (int i = tid; i < rows; i += nt)
+      push_all<C>(s, row0 + i, r[i] - alpha * v[i]);""")
+PUSH_P = ("local_cg.cu", """    if (w0)
+      for (int i = lane; i < rows; i += 32) {
+        const int j = row0 + i;""", """    for (int i = tid; i < rows; i += nt) {
+        const int j = row0 + i;""")
+THREADS_512 = ("local_cg.cu", "constexpr int kClusterThreads = 256;",
+               "constexpr int kClusterThreads = 512;")
+ROWS_8 = ("dense_cluster.cuh", "constexpr int kSliceRows = 4;",
+          "constexpr int kSliceRows = 8;")
+OWN_ONLY = ("dense_cluster.cuh",
+            "for (int c = 0; c < C; ++c) cluster_map(a, c)[i] = v;",
+            "cluster_map(a, cluster_rank())[i] = v;")
+VARIANTS = {
+    "512 threads": [THREADS_512],
+    "8 rows a warp": [ROWS_8],
+    "pushes by all warps": [PUSH_S, PUSH_P],
+    "512 threads, pushes by all warps": [THREADS_512, PUSH_S, PUSH_P],
+    "slices pushed to the own CTA only (measurement only)": [OWN_ONLY],
+}
+
 # One cluster of 8 CTAs, 256 threads each, running `rounds` cluster
 # barriers; mode 1 adds one 256-byte store a CTA a round into the next
 # CTA's shared memory (st.shared::cluster), mode 2 does the same through
@@ -74,7 +105,8 @@ __global__ void __cluster_dims__(8, 1, 1) __launch_bounds__(256)
   if (tid < 64) buf[tid] = 0.f;
   asm volatile("barrier.cluster.arrive.release.aligned;\n"
                "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-  const uint32_t local = (uint32_t)__cvta_generic_to_shared(buf + (tid & 63));
+  const uint32_t local =
+      (uint32_t)__cvta_generic_to_shared(buf + (tid & 63));
   uint32_t remote;
   asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
                : "=r"(remote) : "r"(local), "r"((rank + 1) % 8));
@@ -151,13 +183,82 @@ def compile_all():
     return probe
 
 
+def build_variants():
+    """Each entry of VARIANTS as its own library; {name: CDLL}."""
+    procs = {}
+    for i, (name, edits) in enumerate(VARIANTS.items()):
+        d = WORK / f"variant{i}"
+        d.mkdir(parents=True, exist_ok=True)
+        texts = {f: (_build.CSRC / f).read_text()
+                 for f in ("local_cg.cu", "dense_cluster.cuh")}
+        for f, old, new in edits:
+            if old not in texts[f]:
+                raise RuntimeError(f"{f} changed: {old[:50]!r}")
+            texts[f] = texts[f].replace(old, new)
+        for f, text in texts.items():
+            (d / f).write_text(text)
+        procs[name] = (d / "lib.so", subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+             str(_build.CSRC), "-shared", "-o", str(d / "lib.so"),
+             str(d / "local_cg.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        out, err = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc failed for {name}:\n{err[-6000:]}")
+        lines = (out + err).splitlines()
+        for k, ln in enumerate(lines):
+            if "Compiling entry" in ln and "cluster" in ln:
+                info = " | ".join(
+                    x.split(":")[-1].strip() for x in lines[k + 1:k + 5]
+                    if "registers" in x or "spill" in x)
+                print(f"ptxas variant {name}: {info}", flush=True)
+        lib = ctypes.CDLL(str(so))
+        lib.ttnx_bicgstab_cluster_f32.argtypes = \
+            _build._SIGNATURES["bicgstab_cluster"][0]
+        lib.ttnx_bicgstab_cluster_f32.restype = ctypes.c_int
+        libs[name] = lib
+    return libs
+
+
+def variant_run(lib, K, rhs, iters):
+    def run():
+        out = torch.empty_like(rhs)
+        err = lib.ttnx_bicgstab_cluster_f32(
+            K.data_ptr(), rhs.data_ptr(), out.data_ptr(), K.shape[0], iters,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"variant: CUDA error {err}")
+        return out
+    return run
+
+
+def variants(sites):
+    from ttnx_torch.kernels.local_cg import bicgstab_solve_plain
+
+    it = chip_smoke.BICG_ITERS
+    K, rhs = sites[chip_smoke.CONV_SITE]
+    runs = {"base": lambda: b10("bicgstab_cluster", K, rhs)(it)}
+    runs.update({name: variant_run(lib, K, rhs, it)
+                 for name, lib in build_variants().items()})
+    ref = bicgstab_solve_plain(K, rhs, iters=it)
+    for name, run in runs.items():
+        got = run()
+        err = float((got - ref).abs().max() / ref.abs().max())
+        gate = "measurement only" not in name
+        print(f"check variant {name}: max rel err against plain {err:.3e}"
+              f"{' (<= 1e-4)' if gate else ''}", flush=True)
+        if gate and not err <= 1e-4:
+            raise RuntimeError(f"variant {name} is wrong")
+    for name in list(runs) + list(runs)[::-1]:
+        print(f"time variant {name}: {cuda_ms(runs[name], 10):.4f} ms",
+              flush=True)
+
+
 def demangle(name):
     filt = subprocess.run(["c++filt", name], capture_output=True, text=True)
     return (filt.stdout.strip() or name)[:90]
-
-
-def has(entry):
-    return hasattr(_build._LIB, f"ttnx_{entry}")
 
 
 def cuda_ms(fn, reps=1) -> float:
@@ -238,7 +339,8 @@ def check_b12(q, nk):
     err = float((got - ref).abs().max() / ref.abs().max())
     print(f"check B12 wgmma bench input iters {short}: max rel err "
           f"{err:.3e} (<= {short * BF16_ULP:.3e}); elements differing from "
-          f"PR 4's kernel {int((got != prev).sum())} of {got.numel()}, from "
+          f"the wmma kernel {int((got != prev).sum())} of {got.numel()}, "
+          f"from "
           f"plain {int((got != ref).sum())}", flush=True)
     if not err <= short * BF16_ULP:
         raise RuntimeError("B12 wgmma is wrong on the bench input")
@@ -269,7 +371,7 @@ def check_b10(sites):
         err_old = float((old - ref).abs().max() / ref.abs().max())
         gate = i == chip_smoke.CONV_SITE
         print(f"check B10 cluster site {i}: max rel err against plain "
-              f"{err:.3e}{' (<= 1e-4)' if gate else ''}, PR 4's kernel "
+              f"{err:.3e}{' (<= 1e-4)' if gate else ''}, the l2 kernel "
               f"{err_old:.3e}; two launches bit-identical "
               f"{torch.equal(got, again)}", flush=True)
         if gate and not (err <= 1e-4 and torch.equal(got, again)):
@@ -304,11 +406,13 @@ def paths(dev):
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--step0", action="store_true",
-                    help="PR 4's kernels' splits, the cluster barrier, "
+                    help="the old routes' splits, the cluster barrier, "
                          "checks of the new kernels")
     ap.add_argument("--paths", action="store_true",
                     help="only the convection step by B10 route")
     ap.add_argument("--no-paths", action="store_true")
+    ap.add_argument("--variants", action="store_true",
+                    help="only B10's cluster kernel against VARIANTS")
     opt = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -322,17 +426,18 @@ def main() -> int:
     if opt.paths:
         paths(dev)
         return 0
+    if opt.variants:
+        variants(conv_inputs(dev))
+        return 0
     q, nk = chain_inputs(dev)
     sites = conv_inputs(dev)
     K, rhs = sites[chip_smoke.CONV_SITE]
-    if has("matmul_chain_wgmma_bf16"):
-        check_b12(q, nk)
-    if has("bicgstab_cluster_f32"):
-        check_b10(sites)
+    check_b12(q, nk)
+    check_b10(sites)
     if opt.step0:
-        split("B12 PR 4 (wmma) bench", b12("matmul_chain", q["x"], q["w"]),
+        split("B12 wmma bench", b12("matmul_chain", q["x"], q["w"]),
               (0, 8, 64, 1024), 1)
-        split("B10 PR 4 (l2) CONV_SITE", b10("bicgstab", K, rhs),
+        split("B10 l2 CONV_SITE", b10("bicgstab", K, rhs),
               (0, 16, 32), 10)
         barrier_cost(probe)
         return 0
@@ -342,21 +447,19 @@ def main() -> int:
               lambda: b12("matmul_chain", q["x"], q["w"])(it12), 1)
     split("B12 wgmma bench", b12("matmul_chain_wgmma", q["x"], q["w"]),
           (0, 8, 64, 1024), 1)
-    if has("bicgstab_cluster_f32"):
-        time_pair("B10 CONV_SITE iters 32",
-                  lambda: b10("bicgstab_cluster", K, rhs)(it10),
-                  lambda: b10("bicgstab", K, rhs)(it10), 10)
-        split("B10 cluster CONV_SITE", b10("bicgstab_cluster", K, rhs),
-              (0, 16, 32), 10)
-        for entry in ("bicgstab_cluster", "bicgstab", "bicgstab",
-                      "bicgstab_cluster"):
-            per = [cuda_ms(lambda a=a: b10(entry, *a)(it10), 10)
-                   for a in sites]
-            print(f"time B10 {entry} over the 22 local solves of a step: "
-                  f"{sum(per):.4f} ms (min {min(per):.4f}, max "
-                  f"{max(per):.4f} a launch)", flush=True)
-        if not opt.no_paths:
-            paths(dev)
+    time_pair("B10 CONV_SITE iters 32",
+              lambda: b10("bicgstab_cluster", K, rhs)(it10),
+              lambda: b10("bicgstab", K, rhs)(it10), 10)
+    split("B10 cluster CONV_SITE", b10("bicgstab_cluster", K, rhs),
+          (0, 16, 32), 10)
+    for entry in ("bicgstab_cluster", "bicgstab", "bicgstab",
+                  "bicgstab_cluster"):
+        per = [cuda_ms(lambda a=a: b10(entry, *a)(it10), 10) for a in sites]
+        print(f"time B10 {entry} over the 22 local solves of a step: "
+              f"{sum(per):.4f} ms (min {min(per):.4f}, max {max(per):.4f} "
+              f"a launch)", flush=True)
+    if not opt.no_paths:
+        paths(dev)
     return 0
 
 

@@ -5,8 +5,8 @@
 // array between two warp barriers. run_block runs one block; a cluster
 // launch (cudaLaunchKernelEx) runs its blocks at once, each with its own
 // dynamic shared memory, one cluster-wide barrier for all their threads,
-// and partner addresses mapped block to block. Included by one driver of
-// each emulator executable.
+// and partner addresses mapped block to block. Included by the main
+// program of each emulator executable.
 #pragma once
 #include <barrier>
 #include <cstdint>

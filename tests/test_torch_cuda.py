@@ -21,11 +21,11 @@ iterations on the norm-keeping input (rel Frobenius 1e-3, norm within 1 %).
 B12 likewise: ``wgmma`` (k <= 128, ragged) and ``wmma`` (k = 160), and
 at the bench's 1024 iterations on its norm-keeping input. B10 on both of
 its routes: ``cluster`` (f32, M <= 668, two launches bit-identical) and
-``l2`` (f64, M = 669 and 999). B7 is held on both of its routes: ``site`` (f32 at R = 64 and 32, with and
-without the polish stage) and ``folded`` (f64, the ragged R = 40 stack and
-the bf16 refine stage). B4 and B5 likewise: ``resident`` (f32 at R = 64
-and 32, warm and cold, a rank mask and a scattered one) and ``streamed``
-(f64, R = 20 and 40).
+``l2`` (f64, M = 669 and 999). B7 is held on both of its routes:
+``site`` (f32 at R = 64 and 32, with and without the polish stage) and
+``folded`` (f64, the ragged R = 40 stack and the bf16 refine stage). B4
+and B5 likewise: ``resident`` (f32 at R = 64 and 32, warm and cold, a
+rank mask and a scattered one) and ``streamed`` (f64, R = 20 and 40).
 """
 
 import numpy as np

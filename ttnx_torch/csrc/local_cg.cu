@@ -122,9 +122,13 @@ int cg_solve(const T* K, const T* b, const T* x0, T* out, int M, int iters,
 // What bounds it on the H100: not FLOPs (4 M^2 an iteration: 33.6 MFLOP at
 // M = 512, iters 32, half a microsecond at the f32 peak) and not bytes (K
 // is 1 MB in f32 at M = 512, read once from device memory and then from
-// L2): the two matvecs and four block reductions of an iteration are
-// strictly dependent, so a solve costs iters x (two passes of one SM over
-// K from L2 + four block-wide barriers) plus one launch.
+// L2): the two matvecs and four reductions of an iteration are strictly
+// dependent, so a solve costs iters x (two passes over K + the
+// reductions' barriers) plus one launch. On route "l2" that is two passes
+// of one SM over K from L2 and four block barriers, 22.1 us an iteration
+// at M = 512 on an H100 (700 W); on route "cluster" two passes of 8 SMs
+// over their shares in shared memory and five cluster barriers of about
+// 0.47 us each, 5.95 us an iteration.
 //
 // Design of route "cluster" (bicgstab_cluster_kernel, f32, M <= 668):
 // one cluster of C = 8 CTAs (portable), 256 threads each, on the engine
@@ -336,7 +340,7 @@ __global__ void __launch_bounds__(kClusterThreads)
 }
 
 // One cluster of C CTAs. The first launch at a shared-memory size asks the
-// driver whether such a cluster fits an SM group at all (none fits: an
+// runtime whether such a cluster fits an SM group at all (none fits: an
 // error, never another route).
 template <int C>
 int bicgstab_cluster(const float* K, const float* b, float* out, int M,
