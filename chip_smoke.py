@@ -10,7 +10,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 3. Kernels: each of B1-B4 against its plain PyTorch version on the card,
    on the inputs the CN step really gives it at ranks 16, 32 and 64, in
    float32 and float64; max relative error (<= 1e-4 f32, <= 1e-10 f64)
-   and median time of kernel and plain version.
+   and median time of kernel and plain version. B3 also on a seeded SPD
+   K at M = 509 (neither a multiple of 4 nor of 8), f32 and f64, and twice
+   on the same inputs at r16 in f32 (bit-identical). Each B3 and B4 line
+   names the kernel route the wrapper chose (cg_route: "cluster" for f32
+   at M <= 672, else "l2").
 3b. Batched kernels: B5-B7 against their plain versions at R = 64 and
    32, float32 and float64, on B = 8 distinct problems: B5 and B6 on the
    inputs one als_sweeps_b call gives them (b[i] = (1 + 0.2 i) u_s, x[i] =
@@ -18,8 +22,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    flat-spectrum problems (ROADMAP C: on u_s, whose bond spectrum falls to
    rounding level, its Newton-Schulz gauge is set by rounding noise), plus
    two B7 cases at R = 32: cg_refine=2, cg_polish=2 and cg_polish=2; and
-   B5 at B = 512 on the inputs one als_sweeps_b call on phase 5's problem
-   gives it, with its share of its bound. Each B7 line names the kernel
+   B5 and B6 (right and left) at B = 512 on the inputs one als_sweeps_b
+   call on phase 5's problem gives them, with their shares of their
+   bounds. Each B7 line names the kernel
    route the wrapper chose (sweep_route: "site" for f32 at R = 64 and 32
    without a refine stage, else "folded"), each B4/B5 line in phases 3
    and 3b likewise (matfree_route: "resident" for f32 at R = 64 and 32,
@@ -30,7 +35,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    ms/step and GFLOP/s through the kernels and through the plain versions,
    agreement of the two 8-step states (rel <= 1e-4), and the kernel launch
    counts per step (B1 = 1, B2 = 1 right + 1 left, B3/B4 = 22/0 at rank 16,
-   0/22 at ranks 32 and 64, B4 on route "resident").
+   0/22 at ranks 32 and 64), every B3 launch on route "cluster" and B4 on
+   route "resident".
 5. Batched path: 512 rank-64 d=12 implicit heat solves (f32, no TF32)
    through both routes of the bench ladder, explicit_kernel (als_sweeps_b,
    cg_fused, 16 warm CG iterations: B6 2 launches, B5 22 on route
@@ -46,11 +52,15 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    (d = 12), and B9 (fused Lanczos, M = 1024, iters 8 and 24) on a seeded
    well-conditioned symmetric K (Q, alphas and betas) and on the K the
    d = 10 sweep assembles (gauge-free: the smallest Ritz value and its
-   vector up to sign); float32 (<= 1e-4) and float64 (<= 1e-10).
+   vector up to sign); float32 (<= 1e-4) and float64 (<= 1e-10). Each B9
+   line names the kernel route (lanczos_route: "cluster" for f32 at M <=
+   1024, else "l2"); on the sweep's K at iters 8 in f32 two launches must
+   give the same bits.
 6. DMRG path: the open XXX chain, f32, TF32 off, split='gram', tol =
    degen_tol = 1e-8, 8 chained dmrg_eig_sweeps after a warm-up sweep
    (median of 3 chains): d = 10, rmax = 16 through eig_solver='lanczos'
-   (B8 2 launches a sweep) and 'lanczos_fused' (B8 2, B9 18), and d = 12,
+   (B8 2 launches a sweep) and 'lanczos_fused' (B8 2, B9 18, every one on
+   route "cluster"), and d = 12,
    rmax = 64 through 'lanczos' (B8 at R = 64). Gates: the last energy
    within rel 1e-5 of the dense ground energy, every energy finite, the
    launch counts, and kernels against plain versions (energy rel <= 1e-5,
@@ -95,8 +105,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 
 The last two lines are a JSON summary of the kernels (13 rows: errors,
 times, bound, library time; ``kernel_route`` the wrapper's route where it
-has more than one) and the device line ``{"ok": true, "device":
-{...}}``. Without a CUDA device it exits non-zero and prints no result.
+has more than one; B6 at B = 512, right) and the device line ``{"ok":
+true, "device": {...}}``. Without a CUDA device it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -252,6 +262,27 @@ def solver_calls(replace):
 
 def plain_versions():
     return solver_calls(lambda name, kernel, plain: plain)
+
+
+@contextlib.contextmanager
+def route_log(*names):
+    """Inside the block every call of the named wrappers through the solver
+    modules appends the route its launch took to ``log[name]``; yields
+    ``log``."""
+    log = {name: [] for name in names}
+
+    def replace(name, kernel, plain):
+        if name not in log:
+            return kernel
+
+        def call(*args, **kwargs):
+            out = kernel(*args, **kwargs)
+            log[name].append(kernel.route)
+            return out
+        return call
+
+    with solver_calls(replace):
+        yield log
 
 
 def cuda_ms(fn, reps: int = 10, repeats: int = 5) -> float:
@@ -495,6 +526,15 @@ def hold(name, rmax, dtype, args, kwargs, reps=10, repeats=5, tag="",
                 work=work(name, args, kwargs, got), route=route)
 
 
+def spd_problem(M, dtype, device):
+    """A seeded SPD K = g g^T / M + I, a rhs and a warm start."""
+    rng = np.random.default_rng(M)
+    g = rng.standard_normal((M, M))
+    return tuple(torch.as_tensor(a, dtype=dtype, device=device) for a in
+                 (g @ g.T / M + np.eye(M), rng.standard_normal(M),
+                  rng.standard_normal(M)))
+
+
 def phase_kernels(device):
     rows = []
     for dtype in (torch.float32, torch.float64):
@@ -502,6 +542,11 @@ def phase_kernels(device):
             inputs = capture_inputs(rmax, device, dtype)
             for name, (args, kwargs) in inputs.items():
                 rows.append(hold(name, rmax, dtype, args, kwargs))
+                if name == "cg_solve_fused" and dtype == torch.float32:
+                    deterministic(name, args, kwargs)
+        K, rhs, x0 = spd_problem(509, dtype, device)
+        rows.append(hold("cg_solve_fused", 16, dtype, (K, rhs),
+                         dict(x0=x0, iters=CG_ITERS), tag=" M=509 SPD"))
     if {r["name"] for r in rows} != set(CN_KERNELS):
         raise RuntimeError("the CN step did not call every kernel wrapper")
     return rows
@@ -565,28 +610,34 @@ def phase_batched_kernels(device):
                 rows.append(hold("als_fwd_bwd_fused_batched", rmax, dtype,
                                  sweep, dict(cg_polish=2), reps=1,
                                  repeats=3, tag=" polish2"))
-    args, kwargs = bench_batch_solve(device)
-    row = hold("cg_matfree_fused_batched", 64, torch.float32, args, kwargs,
-               reps=1, repeats=3, tag=f" B={BATCH}")
-    bound_ms, by = bound(row)
-    log(f"kernel B5 B={BATCH} route {row['route']}: {row['ms']:.3f} ms, "
-        f"{bound_ms / row['ms']:.3f} of its {by} bound {bound_ms:.4f} ms")
-    rows.append(row)
+    seen = bench_batch_calls(device)
+    held = [("B5", "cg_matfree_fused_batched",
+             seen["cg_matfree_fused_batched"][MIDDLE_SITE], "")]
+    held += [("B6", "env_chain_fused_batched", call, side) for call, side in
+             zip(seen["env_chain_fused_batched"], (" right", " left"))]
+    for label, name, (args, kwargs), side in held:
+        row = hold(name, 64, torch.float32, args, kwargs, reps=1, repeats=3,
+                   tag=f" B={BATCH}{side}")
+        bound_ms, by = bound(row)
+        route = f" route {row['route']}" if row["route"] else ""
+        log(f"kernel {label} B={BATCH}{side}{route}: {row['ms']:.3f} ms, "
+            f"{bound_ms / row['ms']:.3f} of its {by} bound {bound_ms:.4f} "
+            f"ms")
+        rows.append(row)
     return rows
 
 
-def bench_batch_solve(device):
-    """(args, kwargs) of B5's MIDDLE_SITE-th launch in one als_sweeps_b call
+def bench_batch_calls(device):
+    """``{wrapper name: [(args, kwargs), ...]}`` of one als_sweeps_b call
     on phase 5's problem (B = BATCH, rmax 64, f32), recorded through the
-    plain versions."""
+    plain versions: B5's 22 launches and B6's two."""
     from ttnx_torch.entry import batched_als_problem
     from ttnx_torch.solvers.als_scan_batched import als_sweeps_b
 
     p = batched_als_problem(device, batch=BATCH, rmax=64, d=D, h=H_STEP)
-    seen = record_calls(lambda: als_sweeps_b(
+    return record_calls(lambda: als_sweeps_b(
         p["lhs_stack"], p["b_batch"], p["x_batch"], p["masks"], 2,
         cg_iters=CG_ITERS, solver="cg_fused"))
-    return seen["cg_matfree_fused_batched"][MIDDLE_SITE]
 
 
 def run_chain(step_fn, us, n):
@@ -621,7 +672,8 @@ def phase_main_path(device):
     for rmax in RANKS:
         step_fn, us, unpack = setup(rmax, device)
         before = launch_counts()
-        one = step_fn(us)
+        with route_log("cg_solve_fused") as routes:
+            one = step_fn(us)
         torch.cuda.synchronize()
         per_step = {k: v - before[k] for k, v in launch_counts().items()}
         dense_k = 2 * rmax * rmax <= 1024  # M = R n R: B3 below, B4 above
@@ -636,6 +688,10 @@ def phase_main_path(device):
         b4 = None if dense_k else cg_matfree_fused.route
         if b4 not in (None, "resident"):
             raise RuntimeError(f"r{rmax}: B4 took route {b4}, not resident")
+        b3 = routes["cg_solve_fused"]
+        if b3 != ["cluster"] * per_step["cg_solve_fused"]:
+            raise RuntimeError(f"r{rmax}: B3 took routes {b3}, not all "
+                               f"cluster")
         if one.shape != us.shape or not bool(torch.isfinite(one).all()):
             raise RuntimeError(f"r{rmax}: step output is not a finite "
                                f"{tuple(us.shape)} stack")
@@ -653,7 +709,8 @@ def phase_main_path(device):
             f"GFLOP/s) | plain {plain_ms:.3f} ms/step | traj rel "
             f"{rel:.3e} (<= 1e-3) residual {res:.3e} (<= 1e-2) | kernel vs "
             f"plain 8-step rel {agree:.3e} (<= 1e-4) | launches/step "
-            f"{per_step}{f' | B4 route {b4}' if b4 else ''}")
+            f"{per_step}{f' | B4 route {b4}' if b4 else ''}"
+            f"{f' | B3 routes {set(b3)}' if b3 else ''}")
         if not (np.isfinite(rel) and rel <= 1e-3 and res <= 1e-2
                 and agree <= 1e-4):
             raise RuntimeError(f"cn r{rmax} failed its gates: rel={rel:.3e} "
@@ -830,6 +887,9 @@ def phase_dmrg_kernels(device):
                 rows.append(hold("lanczos_fused", rmax, dtype, (K, v0),
                                  dict(iters=iters), compare=ritz_err,
                                  tag=f" sweep K, iters {iters}, Ritz pair"))
+            if dtype == torch.float32:
+                deterministic("lanczos_fused", (K, v0),
+                              dict(iters=DMRG_ITERS))
             rng = np.random.default_rng(LANCZOS_M)
             K, v0 = spread_K(rng, LANCZOS_M, dtype, device)
             for iters in (8, 24):
@@ -876,8 +936,14 @@ def phase_dmrg_path(device):
         for solver in (("lanczos", "lanczos_fused") if rmax == 16
                        else ("lanczos",)):
             reset_launch_counts()
-            ms, x, m, E = timed_sweeps(p, solver)
+            with route_log("lanczos_fused") as routes:
+                ms, x, m, E = timed_sweeps(p, solver)
             counts = launch_counts()
+            b9 = routes["lanczos_fused"]
+            if b9 != ["cluster"] * counts["lanczos_fused"]:
+                raise RuntimeError(f"dmrg d={d} r{rmax} {solver}: B9 took "
+                                   f"routes {sorted(set(b9))}, not all "
+                                   f"cluster")
             sweeps = 1 + 3 * DMRG_SWEEPS
             want = dict.fromkeys(counts, 0)
             want["env_chain_A_fused"] = 2 * sweeps
@@ -903,7 +969,8 @@ def phase_dmrg_path(device):
                 f"E {e:.9f} dense {E0:.9f} rel {rel:.3e} (<= 1e-5) | "
                 f"ranks {[int(v) for v in m.sum(dim=1).tolist()]} | kernel "
                 f"vs plain E rel {agree:.3e} (<= 1e-5) overlap "
-                f"{overlap:.9f} (>= 1 - 1e-4) | launches/sweep {per_sweep}")
+                f"{overlap:.9f} (>= 1 - 1e-4) | launches/sweep {per_sweep}"
+                f"{f' | B9 routes {set(b9)}' if b9 else ''}")
             if not (finite and rel <= 1e-5 and agree <= 1e-5
                     and overlap >= 1 - 1e-4):
                 raise RuntimeError(f"dmrg d={d} r{rmax} {solver} failed its "
@@ -1096,7 +1163,9 @@ def deterministic(name, args, kwargs):
     kernel = wrappers()[name][0]
     first, again = kernel(*args, **kwargs), kernel(*args, **kwargs)
     torch.cuda.synchronize()
-    same = torch.equal(first, again)
+    if torch.is_tensor(first):
+        first, again = (first,), (again,)
+    same = all(torch.equal(f, a) for f, a in zip(first, again))
     log(f"kernel {KERNELS[name][0]} {name} route {kernel.route}: two "
         f"launches bit-identical {same}")
     if not same:
@@ -1308,13 +1377,14 @@ def phase_contraction_path(device):
 
 def summarize(rows, path_rows, counts):
     """One JSON row per kernel at the type and rank where its path runs
-    it: f32 at rank 64 (B3, B9, B10 at 16; B5 at B = BATCH; B9 the sweep's
-    own K at iters 8, B10 the convection step's K), B11-B13 the bf16
-    contraction path with the error of the bf16 comparison at 8
-    iterations."""
+    it: f32 at rank 64 (B3, B9, B10 at 16; B5 and B6, right, at B =
+    BATCH; B9 the sweep's own K at iters 8, B10 the convection step's K),
+    B11-B13 the bf16 contraction path with the error of the bf16
+    comparison at 8 iterations."""
     pick = {"cg_solve_fused": 16, "lanczos_fused": 16,
             "bicgstab_solve_fused": CONV_RMAX}
-    tag = {"cg_matfree_fused_batched": f" B={BATCH}"}  # the path's batch
+    tag = {"cg_matfree_fused_batched": f" B={BATCH}",  # the path's batch
+           "env_chain_fused_batched": f" B={BATCH} right"}
     summary = []
     for name, (label, _, source, replaces) in KERNELS.items():
         held = [r for r in rows if r["name"] == name]

@@ -260,7 +260,8 @@ def inputs(dev):
         solver="cg_fused"))
     args, kw = seen["cg_matfree_fused_batched"][chip_smoke.MIDDLE_SITE]
     out[f"B5 r64 B={chip_smoke.BATCH_CHECK}"] = (*args, kw["x0"])
-    args, kw = chip_smoke.bench_batch_solve(dev)
+    args, kw = chip_smoke.bench_batch_calls(dev)[
+        "cg_matfree_fused_batched"][chip_smoke.MIDDLE_SITE]
     out[f"B5 r64 B={chip_smoke.BATCH}"] = (*args, kw["x0"])
     return {k: tuple(t.contiguous() for t in v) for k, v in out.items()}
 

@@ -2,8 +2,9 @@
 // use: the site-resident kernels (ttnx_torch/csrc/als_sweep_site.cu,
 // local_cg_site.cu and their site_engine.cuh) under
 // tests/cuda_emu/emulate_site.cpp and emulate_matfree.cpp, and the
-// cluster route of B10 (local_cg.cu with dense_cluster.cuh) under
-// emulate_cluster.cpp. The runtime half (threads, barriers, clusters) is
+// cluster routes of B10 and B3 (local_cg.cu with dense_cluster.cuh)
+// under emulate_cluster.cpp and of B9 (lanczos.cu) under
+// emulate_lanczos.cpp. The runtime half (threads, barriers, clusters) is
 // emu_block.h; cooperative_groups.h is the cluster API on top of it.
 #pragma once
 #include <cmath>
@@ -42,6 +43,10 @@ T __shfl_down_sync(unsigned, T v, int delta) {
   return (T)emu_shfl_down((double)v, delta);
 }
 void __syncthreads();
+template <typename T>
+T __ldg(const T* p) {
+  return *p;
+}
 
 typedef int cudaError_t;
 typedef void* cudaStream_t;
@@ -50,7 +55,8 @@ enum {
   cudaErrorInvalidValue = 1,
   cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
   cudaErrorInvalidConfiguration = 9,
-  cudaLaunchAttributeClusterDimension = 4
+  cudaLaunchAttributeClusterDimension = 4,
+  cudaFuncAttributeNonPortableClusterSizeAllowed = 10
 };
 template <class F>
 cudaError_t cudaFuncSetAttribute(F, int, int) {

@@ -32,9 +32,15 @@ def _rel(got, ref):
     return float(np.linalg.norm(got - ref) / np.linalg.norm(ref))
 
 
+def _host(pkg):
+    """The port's constructors take a required device: the CPU here."""
+    return dict(device="cpu") if pkg is tx else {}
+
+
 def _laplacian(pkg, d):
     hg = 1.0 / (2 ** d + 1)
-    return (-1.0 / hg ** 2) * pkg.toeplitz_to_qtto(2.0, -1.0, -1.0, d), hg
+    return (-1.0 / hg ** 2) * pkg.toeplitz_to_qtto(2.0, -1.0, -1.0, d,
+                                                   **_host(pkg)), hg
 
 
 def _run(pkg, rs, d, rmax, steps, dtype, h=1e-6, **kw):
@@ -42,7 +48,7 @@ def _run(pkg, rs, d, rmax, steps, dtype, h=1e-6, **kw):
     step, pack, unpack = rs.make_cn_step(
         A, h, rmax=rmax, dims=(2,) * d,
         u_rks=(1,) + (rmax,) * (d - 1) + (1,), dtype=dtype, **kw)
-    u = pack(pkg.qtt_sin(d, a=hg, b=1 - hg))
+    u = pack(pkg.qtt_sin(d, a=hg, b=1 - hg, **_host(pkg)))
     for _ in range(steps):
         u = step(u)
     return unpack(u)
@@ -102,7 +108,7 @@ def test_cn_step_closed_form():
         A, 1e-7, rmax=rmax, dims=(2,) * d,
         u_rks=(1,) + (rmax,) * (d - 1) + (1,), sweep_count=3,
         round_method="gram_chain")
-    u0 = tx.qtt_sin(d, a=hg, b=1 - hg)
+    u0 = tx.qtt_sin(d, a=hg, b=1 - hg, device="cpu")
     u = pack(u0)
     for _ in range(5):
         u = step(u)
@@ -118,7 +124,7 @@ def test_make_cn_evolve_matches_stepping():
               sweep_count=2)
     step, pack, _ = t_rs.make_cn_step(A, 1e-6, rmax, **kw)
     evolve, pack2, _ = t_rs.make_cn_evolve(A, 1e-6, rmax, n_steps=3, **kw)
-    u0 = tx.qtt_sin(d, a=hg, b=1 - hg)
+    u0 = tx.qtt_sin(d, a=hg, b=1 - hg, device="cpu")
     u = pack(u0)
     for _ in range(3):
         u = step(u)
@@ -171,10 +177,12 @@ def test_als_linsolve_scan_matches_ttnx():
     ranks = (1, 2, 3, 3, 3, 2, 1)
     x0 = [rng.standard_normal((ranks[k], 2, ranks[k + 1])) for k in range(d)]
     A_j = ttnx.id_tto(d) + 0.1 * ttnx.toeplitz_to_qtto(2.0, -1.0, -1.0, d)
-    A_t = tx.id_tto(d) + 0.1 * tx.toeplitz_to_qtto(2.0, -1.0, -1.0, d)
+    A_t = tx.id_tto(d) + 0.1 * tx.toeplitz_to_qtto(2.0, -1.0, -1.0, d,
+                                                    device="cpu")
     ref = j_linsolve(A_j, ttnx.qtt_sin(d), ttnx.TTVector(
         [jnp.asarray(c) for c in x0]), sweep_count=4)
-    got = tx.als_linsolve_scan(A_t, tx.qtt_sin(d), ttvector_from_numpy(x0),
+    got = tx.als_linsolve_scan(A_t, tx.qtt_sin(d, device="cpu"),
+                               ttvector_from_numpy(x0),
                                sweep_count=4)
     assert _rel(t_dense(got).numpy(), np.asarray(j_dense(ref))) <= TOL
 

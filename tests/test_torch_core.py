@@ -307,7 +307,7 @@ def test_svdtrunc_compress_entropy(vecs):
 
 @pytest.mark.parametrize("d", [1, 2, 5])
 def test_toeplitz_to_qtto(d):
-    _close(_dense(toeplitz_to_qtto(2.0, -1.0, -0.5, d)),
+    _close(_dense(toeplitz_to_qtto(2.0, -1.0, -0.5, d, device="cpu")),
            _dense(ttnx.toeplitz_to_qtto(2.0, -1.0, -0.5, d)))
 
 
@@ -315,7 +315,7 @@ def test_toeplitz_to_qtto(d):
 def test_qtt_sin(lam):
     d = 6
     hg = 1.0 / (2 ** d + 1)
-    got = qtt_sin(d, a=hg, b=1 - hg, lam=lam)
+    got = qtt_sin(d, a=hg, b=1 - hg, lam=lam, device="cpu")
     _close(_dense(got), _dense(ttnx.qtt_sin(d, a=hg, b=1 - hg, lam=lam)))
     grid = np.arange(1, 2 ** d + 1) * hg
     _close(_dense(got).reshape(-1), np.sin(lam * math.pi * grid))

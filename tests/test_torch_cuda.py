@@ -21,7 +21,10 @@ iterations on the norm-keeping input (rel Frobenius 1e-3, norm within 1 %).
 B12 likewise: ``wgmma`` (k <= 128, ragged) and ``wmma`` (k = 160), and
 at the bench's 1024 iterations on its norm-keeping input. B10 on both of
 its routes: ``cluster`` (f32, M <= 668, two launches bit-identical) and
-``l2`` (f64, M = 669 and 999). B7 is held on both of its routes:
+``l2`` (f64, M = 669 and 999). B3 and B9 likewise: ``cluster`` (f32,
+B3 at M <= 672 on 8 CTAs, B9 at M <= 1024 on 16 with rows streamed from
+L2; two launches bit-identical; B9's breakdown) and ``l2`` (f64, B3 at M
+= 673, B9 at M = 1100). B7 is held on both of its routes:
 ``site`` (f32 at R = 64 and 32, with and without the polish stage) and
 ``folded`` (f64, the ragged R = 40 stack and the bf16 refine stage). B4
 and B5 likewise: ``resident`` (f32 at R = 64 and 32, warm and cold, a
@@ -54,10 +57,11 @@ from ttnx_torch.kernels.env_chain import (env_chain_A_fused,
                                           right_env_chain_fused,
                                           right_env_chain_plain)
 from ttnx_torch.kernels.gram import gram_chain_fused, gram_chain_plain
-from ttnx_torch.kernels.lanczos import lanczos_fused, lanczos_plain
+from ttnx_torch.kernels.lanczos import (lanczos_fused, lanczos_plain,
+                                        lanczos_route)
 from ttnx_torch.kernels.local_cg import (bicgstab_route,
                                          bicgstab_solve_fused,
-                                         bicgstab_solve_plain,
+                                         bicgstab_solve_plain, cg_route,
                                          cg_solve_fused, cg_solve_plain)
 from ttnx_torch.kernels.local_cg_mf import (cg_matfree_batched_plain,
                                             cg_matfree_fused,
@@ -156,6 +160,33 @@ def test_cg_solve_kernel(cuda, dtype, warm):
     kw = dict(x0=x0 if warm else None, iters=12)
     got = cg_solve_fused(K, rhs, **kw)
     torch.cuda.synchronize()
+    assert cg_solve_fused.route == cg_route(dtype, M)
+    _close(got, cg_solve_plain(K, rhs, **kw), _tol(dtype, loose=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("dtype,M,route", [
+    (torch.float32, 5, "cluster"), (torch.float32, 37, "cluster"),
+    (torch.float32, 509, "cluster"), (torch.float32, 512, "cluster"),
+    (torch.float32, 672, "cluster"), (torch.float32, 673, "l2"),
+    (torch.float64, 512, "l2")])
+def test_cg_solve_kernel_routes(cuda, dtype, M, route, warm):
+    """B3 on each route, at its edges (a CTA of the cluster owning no row
+    at M = 5, M neither a multiple of 4 nor of 8, the largest cluster M
+    and one past it), against the plain version, and deterministic: two
+    launches give the same bits."""
+    rng = np.random.default_rng(M + 2)
+    g = rng.standard_normal((M, M)) / np.sqrt(M)
+    K, rhs, x0 = _on(cuda, dtype, g @ g.T + np.eye(M),
+                     rng.standard_normal(M), rng.standard_normal(M))
+    kw = dict(x0=x0 if warm else None, iters=3 if M < 8 else 16)
+    assert cg_route(dtype, M) == route
+    got = cg_solve_fused(K, rhs, **kw)
+    again = cg_solve_fused(K, rhs, **kw)
+    torch.cuda.synchronize()
+    assert cg_solve_fused.route == route
+    assert torch.equal(got, again)
     _close(got, cg_solve_plain(K, rhs, **kw), _tol(dtype, loose=True))
 
 
@@ -409,6 +440,7 @@ def test_lanczos_kernel(cuda, dtype, iters):
     got = lanczos_fused(K, v0, iters=iters)
     torch.cuda.synchronize()
     assert lanczos_fused.launches == before + 1
+    assert lanczos_fused.route == lanczos_route(dtype, 1024)
     ref = lanczos_plain(K, v0, iters=iters)
     for g, r in zip(got, ref):
         _close(g, r, _tol(dtype, loose=True))
@@ -436,6 +468,8 @@ def test_lanczos_kernel_breakdown(cuda, dtype):
     K, v0 = _on(cuda, dtype, K, v0)
     Q, alphas, betas = lanczos_fused(K, v0, iters=iters)
     torch.cuda.synchronize()
+    assert lanczos_fused.route == ("cluster" if dtype == torch.float32
+                                   else "l2")
     rQ, ra, rb = lanczos_plain(K, v0, iters=iters)
     assert torch.equal(betas == 0, rb == 0)
     dead = int(torch.nonzero(betas == 0)[0]) + 1
@@ -443,6 +477,28 @@ def test_lanczos_kernel_breakdown(cuda, dtype):
     assert bool((Q[dead:] == 0).all()) and bool((alphas[dead:] == 0).all())
     assert bool((betas[dead - 1:] == 0).all())
     _close(alphas[:dead], ra[:dead], _tol(dtype, loose=True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,M,iters,route", [
+    (torch.float32, 1024, 8, "cluster"), (torch.float32, 999, 24, "cluster"),
+    (torch.float32, 37, 8, "cluster"), (torch.float32, 5, 3, "cluster"),
+    (torch.float32, 1100, 8, "l2"), (torch.float64, 1024, 8, "l2")])
+def test_lanczos_kernel_routes(cuda, dtype, M, iters, route):
+    """B9 on each route (on the cluster's 16 CTAs: M = 1024 with 10 of a
+    CTA's 64 rows streamed from L2, a ragged M, a CTA owning no row at M =
+    5), against the plain version, and deterministic: two launches give
+    the same bits."""
+    K, v0 = _on(cuda, dtype, *_spread_K(np.random.default_rng(M), M))
+    assert lanczos_route(dtype, M) == route
+    got = lanczos_fused(K, v0, iters=iters)
+    again = lanczos_fused(K, v0, iters=iters)
+    torch.cuda.synchronize()
+    assert lanczos_fused.route == route
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    for g, r in zip(got, lanczos_plain(K, v0, iters=iters)):
+        _close(g, r, _tol(dtype, loose=True))
+    assert float(got[2][-1]) == 0.0
 
 
 @pytest.mark.cuda

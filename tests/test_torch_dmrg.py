@@ -98,7 +98,7 @@ SPIN_CHAINS = [
                               enumerate(SPIN_CHAINS)])
 def test_spin_chain_constructors_match_ttnx(name, args, kw):
     ref = getattr(ttnx, name)(*args, **kw)
-    got = getattr(ttnx_torch, name)(*args, **kw)
+    got = getattr(ttnx_torch, name)(*args, **kw, device="cpu")
     ref_cores = [np.asarray(c) for c in ref.cores]
     got_cores = [c.numpy() for c in got.cores]
     assert [c.shape for c in got_cores] == [c.shape for c in ref_cores]
@@ -117,7 +117,7 @@ def test_pauli_matrix_and_bad_axis():
     with pytest.raises(ValueError):
         ttnx_torch.pauli_matrix("w")
     with pytest.raises(ValueError):
-        ttnx_torch.heisenberg_xyz_tto(1)
+        ttnx_torch.heisenberg_xyz_tto(1, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -270,7 +270,7 @@ def _orth_start(seed, d, r, n=2):
 
 
 def _xxx_problem(d, rmax, dt, seed=3, r0=4):
-    H = ttnx_torch.xxx_tto(d)
+    H = ttnx_torch.xxx_tto(d, device="cpu")
     A = np.asarray([np.pad(c.numpy(), ((0, 5 - c.shape[0]), (0, 0), (0, 0),
                                        (0, 5 - c.shape[3])))
                     for c in H.cores])
@@ -335,7 +335,7 @@ def test_eig_sweep_matches_ttnx_f32_gram():
 
 def test_eigsolve_scan_reaches_dense_ground_energy():
     d = 6
-    H = ttnx_torch.xxx_tto(d)
+    H = ttnx_torch.xxx_tto(d, device="cpu")
     cores, _ = _orth_start(11, d, 2)
     x0 = ttvector_from_numpy(cores)
     E, x = ttnx_torch.dmrg_eigsolve_scan(H, x0, tol=1e-12, rmax=12,
@@ -370,7 +370,7 @@ def test_batched_eig_sweeps_match_ttnx_vmap(per_problem):
     xs, ms, As = [], [], []
     for i in range(B):
         H = ttnx_torch.xxz_tto(d, delta=0.5, h=0.2 * i if per_problem
-                               else 0.0)
+                               else 0.0, device="cpu")
         As.append(np.stack([np.pad(c.numpy(), ((0, 5 - c.shape[0]), (0, 0),
                                                (0, 0), (0, 5 - c.shape[3])))
                             for c in H.cores]))
@@ -416,7 +416,7 @@ def test_dense_xxx_groundstate_sparse_matches_dense():
     """The oracle's sparse eigsh branch (d = 11) against a dense eigvalsh
     of the same Kronecker sum (d = 11 is 2048 states)."""
     d = 11
-    H = ttnx_torch.xxx_tto(d)
+    H = ttnx_torch.xxx_tto(d, device="cpu")
     w = np.linalg.eigvalsh(_op_dense([c.numpy() for c in H.cores]))
     assert abs(dense_xxx_groundstate(d) - w[0]) < 1e-9 * abs(w[0])
 

@@ -1,14 +1,17 @@
 """The public entry points of ``ttnx_torch.entry`` run where the caller
 says: every function that builds tensors takes a required ``device`` (no
 default, so nothing lands on the CPU unasked), and the others build on
-numpy and scipy alone (the oracles and the numpy state stacks)."""
+numpy and scipy alone (the oracles and the numpy state stacks). The
+constructors of ``ttnx_torch.ops`` likewise take a required ``device``."""
 
 import inspect
 
 import numpy as np
+import pytest
 import torch
 
 from ttnx_torch import entry
+from ttnx_torch.ops import operators, qtt
 
 # entry points that take no device: numpy/scipy builders and oracles
 HOST_ONLY = {"flat_spectrum_stack", "dense_xxx_groundstate",
@@ -45,3 +48,41 @@ def test_three_mode_state_and_convection_operator_on_the_given_device():
     A = entry.convection_operator(4, 10.0, cpu)
     assert all(c.device == cpu for c in u.cores)
     assert all(c.device == cpu for c in A.cores)
+
+
+# every public constructor of ttnx_torch.ops (and the private _op they
+# share) with small arguments; pauli_matrix returns numpy and takes none
+CONSTRUCTORS = [
+    (operators._op, ([[[np.eye(2)]]], torch.float64)),
+    (operators.toeplitz_to_qtto, (2.0, -1.0, -1.0, 4)),
+    (operators.pauli_sum_tto, ("x", 3)),
+    (operators.pauli_pair_sum_tto, ("x", "z", 3)),
+    (operators.H_mu, ("z", 3)),
+    (operators.H_munu, ("x", "x", 3)),
+    (operators.heisenberg_xyz_tto, (3,)),
+    (operators.ising_tto, (3,)),
+    (operators.xxz_tto, (3,)),
+    (operators.xxx_tto, (3,)),
+    (operators.xy_tto, (3,)),
+    (qtt.qtt_sin, (4,)),
+]
+
+
+def test_constructors_cover_the_public_ops():
+    named = {fn.__name__ for fn, _ in CONSTRUCTORS}
+    assert set(operators.__all__) - {"pauli_matrix"} <= named
+    assert set(qtt.__all__) <= named
+
+
+@pytest.mark.parametrize("fn,args", CONSTRUCTORS,
+                         ids=[fn.__name__ for fn, _ in CONSTRUCTORS])
+def test_ops_constructor_needs_a_device(fn, args):
+    """No default device: a call without one raises TypeError, and the
+    cores land where the caller says."""
+    param = inspect.signature(fn).parameters["device"]
+    assert param.kind is inspect.Parameter.KEYWORD_ONLY
+    assert param.default is inspect.Parameter.empty
+    with pytest.raises(TypeError):
+        fn(*args)
+    cpu = torch.device("cpu")
+    assert all(c.device == cpu for c in fn(*args, device=cpu).cores)

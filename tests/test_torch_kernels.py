@@ -32,14 +32,17 @@ from ttnx.solvers.als_scan import _local_solve_padded as j_local_solve
 from ttnx_torch.kernels import _build, dispatch
 from ttnx_torch.kernels import als_sweep_fused  # noqa: F401  (registers B7)
 from ttnx_torch.kernels import contraction  # noqa: F401  (registers B11-B13)
-from ttnx_torch.kernels import lanczos  # noqa: F401  (registers B9)
+from ttnx_torch.kernels import lanczos, local_cg
 from ttnx_torch.kernels.env_chain import (left_env_chain_fused,
                                           left_env_chain_plain,
                                           right_env_chain_fused,
                                           right_env_chain_plain)
 from ttnx_torch.kernels.gram import gram_chain_fused, gram_chain_plain
+from ttnx_torch.kernels.lanczos import (cluster_layout, lanczos_fused,
+                                        lanczos_plain, lanczos_route)
 from ttnx_torch.kernels.local_cg import (bicgstab_solve_fused,
                                          bicgstab_solve_plain,
+                                         cg_cluster_smem, cg_route,
                                          cg_solve_fused, cg_solve_plain)
 from ttnx_torch.kernels.local_cg_mf import (cg_matfree_batched_plain,
                                             cg_matfree_fused,
@@ -48,6 +51,7 @@ from ttnx_torch.kernels.local_cg_mf import (cg_matfree_batched_plain,
 from ttnx_torch.solvers.als_scan import _local_solve_padded as t_local_solve
 
 F64, F32 = np.float64, np.float32
+T32 = torch.float32
 
 
 def _t(a, dt):
@@ -320,6 +324,77 @@ def test_cpu_tensors_at_resident_shape_take_plain(batched):
                        plain(*args, x0=x0, iters=3))
     assert wrapper.launches == before
     assert wrapper.route == route
+
+
+@pytest.mark.parametrize("dtype,M,route", [
+    (T32, 512, "cluster"), (T32, 1, "cluster"), (T32, 509, "cluster"),
+    (T32, 672, "cluster"), (T32, 673, "l2"), (T32, 1024, "l2"),
+    (torch.float64, 512, "l2"), (torch.float64, 24, "l2")])
+def test_cg_route_follows_dtype_and_size(dtype, M, route):
+    """B3 chooses its CUDA kernel by dtype and M alone: f32 K whose rows
+    fit a cluster of 8 CTAs' shared memory the cluster kernel, f64 and
+    larger K the one-block L2 kernel."""
+    assert cg_route(dtype, M) == route
+
+
+def test_cg_cluster_route_shared_memory():
+    """B3's cluster limit is where one CTA's share (its rows of K, full p
+    and r, its slices of x and K p, two slot arrays) stops fitting 227 KB:
+    135,744 bytes at the path's M = 512 (64 rows, 128 KB of K)."""
+    assert cg_cluster_smem(512) == 135744
+    assert local_cg.CG_CLUSTER_MAX_M == 672
+    assert cg_cluster_smem(672) <= local_cg.SMEM_BLOCK < cg_cluster_smem(673)
+    assert all(cg_cluster_smem(M) <= local_cg.SMEM_BLOCK
+               for M in range(1, 673))
+
+
+@pytest.mark.parametrize("dtype,M,route", [
+    (T32, 1024, "cluster"), (T32, 1, "cluster"), (T32, 999, "cluster"),
+    (T32, 1025, "l2"), (torch.float64, 1024, "l2"),
+    (torch.float64, 16, "l2")])
+def test_lanczos_route_follows_dtype_and_size(dtype, M, route):
+    """B9 chooses its CUDA kernel by dtype and M alone: f32 at M <= 1024
+    (a streamed row is 32 loads a lane) the cluster kernel, f64 and larger
+    K the one-block L2 kernel."""
+    assert lanczos_route(dtype, M) == route
+
+
+def test_lanczos_cluster_layout():
+    """B9's cluster route at its largest M, 1024, on 16 CTAs: 54 of a
+    CTA's 64 rows of K resident at iters 8 (53 at 24), the rest streamed;
+    the basis slice in shared memory up to iters 256; a layout for every
+    M and iters the path can give, inside 227 KB."""
+    lay = cluster_layout(1024, 8)
+    assert (lay["resident"], lay["q_in_smem"]) == (54, True)
+    assert lay["bytes"] == 228704 <= lanczos.SMEM_BLOCK
+    assert cluster_layout(1024, 24)["resident"] == 53
+    assert cluster_layout(1024, 256)["q_in_smem"]
+    assert not cluster_layout(1024, 1024)["q_in_smem"]
+    assert lanczos.CLUSTER_MAX_M == 1024
+    for M in range(1, 1025, 7):
+        for iters in (1, 8, 24, 32):
+            lay = cluster_layout(M, iters)
+            assert lay["bytes"] <= lanczos.SMEM_BLOCK
+            assert lay["resident"] <= (M + 15) // 16
+
+
+def test_cpu_tensors_take_plain_b3_b9():
+    """f32 K at the cluster routes' sizes on the CPU: the plain versions,
+    no launch, the recorded routes untouched."""
+    rng = np.random.default_rng(3)
+    g = rng.standard_normal((40, 40))
+    K = _t(g @ g.T / 40 + np.eye(40), F32)
+    v = _t(rng.standard_normal(40) / np.sqrt(40), F32)
+    assert cg_route(T32, 40) == lanczos_route(T32, 40) == "cluster"
+    before = (cg_solve_fused.launches, cg_solve_fused.route,
+              lanczos_fused.launches, lanczos_fused.route)
+    assert torch.equal(cg_solve_fused(K, v, x0=v, iters=3),
+                       cg_solve_plain(K, v, x0=v, iters=3))
+    for g_, r_ in zip(lanczos_fused(K, v, iters=3),
+                      lanczos_plain(K, v, iters=3)):
+        assert torch.equal(g_, r_)
+    assert (cg_solve_fused.launches, cg_solve_fused.route,
+            lanczos_fused.launches, lanczos_fused.route) == before
 
 
 def test_gate_rejects_other_devices_and_types():

@@ -49,9 +49,10 @@ def _problem(kind, seed=0):
     rng = np.random.default_rng(seed)
     if kind == "heat":
         hg = 1.0 / (2 ** D + 1)
-        H = (0.1 / hg ** 2) * ttnx_torch.toeplitz_to_qtto(-2.0, 1.0, 1.0, D)
+        H = (0.1 / hg ** 2) * ttnx_torch.toeplitz_to_qtto(-2.0, 1.0, 1.0, D,
+                                                          device="cpu")
     else:
-        H = ttnx_torch.xxz_tto(D, delta=0.7, h=0.3)
+        H = ttnx_torch.xxz_tto(D, delta=0.7, h=0.3, device="cpu")
     RA = max(H.ranks)
     A = np.stack([np.pad(c.numpy(), ((0, RA - c.shape[0]), (0, 0), (0, 0),
                                      (0, RA - c.shape[3])))

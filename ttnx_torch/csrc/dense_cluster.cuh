@@ -7,8 +7,11 @@
 // An inner product is a partial a CTA, pushed into a slot array [C] in
 // every CTA and summed there in rank order after the cluster barrier, so
 // every CTA computes bit-identical scalars and a call is deterministic.
-// Used by B10 (local_cg.cu, bicgstab_cluster_kernel); B3 and B9 (the
-// other dense-K, one-SM kernels) can take it next.
+// Used by B10 and B3 (local_cg.cu: bicgstab_cluster_kernel,
+// cg_cluster_kernel) and B9 (lanczos.cu, lanczos_cluster_kernel, whose
+// K at M = 1024 is larger than a cluster's shared memory: each CTA keeps
+// as many of its rows as fit and streams the rest from L2 on every
+// matvec, streamed_matvec).
 //
 // The hardware primitives (rank, DSMEM pointer, barrier) go through
 // cooperative groups and the copy through one small wrapper, so that a
@@ -136,6 +139,123 @@ __device__ __forceinline__ void slice_matvec(const float* Ks, const float* v,
       if (lane == 0 && r0 + q < rows) out[r0 + q] = acc[q];
     }
   }
+}
+
+// Rows [row0, row0 + rows) of K (M, M) into Ks (rows x ld, ld = M
+// rounded up to float4s, zero from M to ld): 16-byte asynchronous copies
+// when M is a multiple of 4 and K 16-byte aligned, else element by
+// element; copy_wait() ends the copies.
+__device__ __forceinline__ void load_rows(float* Ks, const float* K, int row0,
+                                          int rows, int M, int ld) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const float* Kp = K + (size_t)row0 * M;
+  if (M % 4 == 0 && ((size_t)K & 15) == 0) {
+    const int q4 = M / 4;
+    for (int e = tid; e < rows * q4; e += nt)
+      copy16(Ks + (size_t)(e / q4) * ld + (e % q4) * 4, Kp + (size_t)e * 4);
+  } else {
+    for (int e = tid; e < rows * ld; e += nt) {
+      const int i = e / ld, j = e % ld;
+      Ks[e] = j < M ? Kp[(size_t)i * M + j] : 0.f;
+    }
+  }
+}
+
+constexpr int kStreamMaxM = 1024;  // a lane's loads of one row: 32 floats
+
+// out[i] = sum_j K[i M + j] v[j] for rows i < rows of K in device memory
+// (read from L2 on every call), M <= kStreamMaxM: one row a warp, the
+// last warp first (slice_matvec gives the first warps one row group
+// more), each lane's loads of the row (8 float4s when M is a multiple of
+// 4 and K 16-byte aligned, else 32 floats) issued before any is used,
+// then summed in column order and by a butterfly: the same order in every
+// call. v is 16-byte aligned and zero from M to up4(M).
+__device__ __forceinline__ void streamed_matvec(const float* K,
+                                                const float* v, float* out,
+                                                int rows, int M) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  const bool vec = M % 4 == 0 && ((size_t)K & 15) == 0;
+  for (int i = nw - 1 - warp; i < rows; i += nw) {
+    const float* kr = K + (size_t)i * M;
+    float acc = 0.f;
+    if (vec) {
+      const float4* k4 = reinterpret_cast<const float4*>(kr);
+      const float4* v4 = reinterpret_cast<const float4*>(v);
+      const int n4 = M / 4;
+      float4 k[kStreamMaxM / 128];
+#pragma unroll
+      for (int u = 0; u < kStreamMaxM / 128; ++u) {
+        const int j = lane + 32 * u;
+        k[u] = j < n4 ? __ldg(k4 + j) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int u = 0; u < kStreamMaxM / 128; ++u) {
+        const int j = lane + 32 * u;
+        if (j < n4) {
+          const float4 x = v4[j];
+          acc += k[u].x * x.x + k[u].y * x.y + k[u].z * x.z + k[u].w * x.w;
+        }
+      }
+    } else {
+      float k[kStreamMaxM / 32];
+#pragma unroll
+      for (int u = 0; u < kStreamMaxM / 32; ++u) {
+        const int j = lane + 32 * u;
+        k[u] = j < M ? __ldg(kr + j) : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < kStreamMaxM / 32; ++u) {
+        const int j = lane + 32 * u;
+        if (j < M) acc += k[u] * v[j];
+      }
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, o);
+    if (lane == 0) out[i] = acc;
+  }
+}
+
+// Launches `kernel` as one cluster of C CTAs (the whole grid) of
+// `threads` threads with `smem` bytes of dynamic shared memory a CTA; C >
+// 8 is allowed as a non-portable size. The first launch at a size asks
+// the runtime whether such a cluster fits an SM group at all (`*fits`: the
+// largest size one was found to fit at); none fits: an error, never
+// another route. Returns the launch's error, or cudaGetLastError().
+template <typename... P, typename... A>
+int launch_cluster(void (*kernel)(P...), int C, int threads, size_t smem,
+                   cudaStream_t st, size_t* fits, A... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  if (C > 8) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(C, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (smem > *fits) {
+    int clusters = 0;
+    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+    if (err != cudaSuccess) return (int)err;
+    if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
+    *fits = smem;
+  }
+  err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace ttnx_cluster

@@ -8,16 +8,28 @@
 //
 // What bounds it on the H100: every iteration reads all of K (1 MB in f32
 // at M = 512, 4 MB at M = 1024, twice that in f64) and the iterations are
-// strictly sequential, so a solve is bound by how fast one launch can
-// stream K from L2. K does not fit in shared memory (227 KB), unlike the
-// TPU kernel's VMEM-resident K.
+// strictly sequential, so a solve is bound by the dependent chain of its
+// iterations: one matvec and two reductions each. K does not fit in one
+// SM's shared memory (227 KB), unlike the TPU kernel's VMEM-resident K.
 //
-// Design: one block of 1024 threads runs the whole solve in one launch.
-// The iterates x, r, p, Kp live in shared memory (4 M values), K stays in
-// device memory and is re-read from L2 each iteration, one warp per row
-// with coalesced loads; r.r and p.Kp are block reductions in a fixed
-// order (deterministic). Later work: split K's rows over a cluster of
-// blocks so each SM keeps its share in shared memory.
+// Design of route "cluster" (cg_cluster_kernel, f32, M <= 672), on the
+// engine of dense_cluster.cuh as B10's: one cluster of C = 8 CTAs, 256
+// threads each; CTA c holds rows [c R, c R + R) of K in its shared memory
+// for the whole solve, R = ceil(M / C) (64 rows, 128 KB at M = 512), its
+// slices of x and K p, and full-length p and r. An iteration runs two
+// cluster barriers: (1) the partials of p.Kp; (2) the partials of r.r,
+// with every CTA's new slice of r pushed into every partner's full r in
+// the same exchange. After (2) each CTA updates the whole of p = r + beta
+// p itself (elementwise from the same bits: the same p in every CTA), so
+// p needs no exchange. The warm start is one more matvec whose r slices
+// ride on the first barrier. Every CTA sums the partials in rank order,
+// so all hold the same alpha and beta and a call is deterministic.
+//
+// Design of route "l2" (cg_kernel: f64, larger M): one block of 1024
+// threads runs the whole solve in one launch. The iterates x, r, p, Kp
+// live in shared memory (4 M values), K stays in device memory and is
+// re-read from L2 each iteration, one warp per row with coalesced loads;
+// r.r and p.Kp are block reductions in a fixed order (deterministic).
 #include "common.cuh"
 #include "dense_cluster.cuh"
 
@@ -339,47 +351,137 @@ __global__ void __launch_bounds__(kClusterThreads)
   for (int i = tid; i < rows; i += nt) out[row0 + i] = x[i];
 }
 
-// One cluster of C CTAs. The first launch at a shared-memory size asks the
-// runtime whether such a cluster fits an SM group at all (none fits: an
-// error, never another route).
+// One cluster of C CTAs (ttnx_cluster::launch_cluster).
 template <int C>
 int bicgstab_cluster(const float* K, const float* b, float* out, int M,
                      int iters, cudaStream_t st) {
   const size_t smem = bicgstab_cluster_smem(M, C);
   if (M < 1 || iters < 0 || smem > kSmemBlock)
     return (int)cudaErrorInvalidValue;
-  void (*kernel)(const float*, const float*, float*, int, int) =
-      bicgstab_cluster_kernel<C>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(C, 1, 1);
-  cfg.blockDim = dim3(kClusterThreads, 1, 1);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = st;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  static size_t fits = 0;  // the largest size a cluster was found to fit at
-  if (smem > fits) {
-    int clusters = 0;
-    err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
-    if (err != cudaSuccess) return (int)err;
-    if (clusters < 1) return (int)cudaErrorInvalidConfiguration;
-    fits = smem;
+  static size_t fits = 0;
+  return ttnx_cluster::launch_cluster(bicgstab_cluster_kernel<C>, C,
+                                      kClusterThreads, smem, st, &fits, K, b,
+                                      out, M, iters);
+}
+
+// ---------------------------------------------------------------------------
+// Route "cluster" of B3: CG in f32 on a cluster of C CTAs, K resident in
+// their shared memory
+// ---------------------------------------------------------------------------
+
+// Shared memory of one CTA in bytes: its rows of K (ceil(M / C) x ld),
+// full p and r (ld each), its slices of x and K p and two slot arrays of
+// C partials.
+__host__ __device__ inline size_t cg_cluster_smem(int M, int C) {
+  const int rpc = (M + C - 1) / C;
+  return ((size_t)rpc * up4(M) + 2 * up4(M) + 2 * up4(rpc) + 2 * C) *
+         sizeof(float);
+}
+
+template <int C>
+__global__ void __launch_bounds__(kClusterThreads)
+    cg_cluster_kernel(const float* K, const float* b, const float* x0,
+                      float* out, int M, int iters, int warm) {
+  using namespace ttnx_cluster;
+  const int rank = cluster_rank();
+  const int ld = up4(M), rpc = (M + C - 1) / C, rp4 = up4(rpc);
+  const int row0 = rank * rpc;
+  const int rows = M - row0 < rpc ? (M - row0 > 0 ? M - row0 : 0) : rpc;
+  float* Ks = bcl_smem;              // (rows, ld): K[row0 + i, :]
+  float* p = Ks + (size_t)rpc * ld;  // full length
+  float* r = p + ld;                 // full length
+  float* x = r + ld;                 // this CTA's slices, rp4 each
+  float* ap = x + rp4;
+  float* slot_d = ap + rp4;  // partials: p.Kp
+  float* slot_r = slot_d + C;  // r.r
+  const int tid = threadIdx.x, nt = blockDim.x, lane = tid & 31;
+  const bool w0 = tid < 32;  // warp 0 updates the slices and reduces
+
+  load_rows(Ks, K, row0, rows, M, ld);
+  for (int j = tid; j < ld; j += nt) {
+    p[j] = j < M ? (warm ? x0[j] : b[j]) : 0.f;  // x0 first when warm
+    r[j] = j < M ? b[j] : 0.f;
   }
-  err = cudaLaunchKernelEx(&cfg, kernel, K, b, out, M, iters);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  for (int i = tid; i < rows; i += nt) x[i] = warm ? x0[row0 + i] : 0.f;
+  copy_wait();
+  cluster_sync();  // every CTA runs and holds its rows: DSMEM from here on
+  if (warm) {
+    slice_matvec(Ks, p, ap, rows, ld);  // K x0
+    __syncthreads();
+    if (w0) {
+      float s = 0.f;
+      for (int i = lane; i < rows; i += 32) {
+        const float ri = b[row0 + i] - ap[i];
+        push_all<C>(r, row0 + i, ri);
+        s += ri * ri;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, o);
+      push_partial<C>(slot_r, s, rank);
+    }
+  } else if (w0) {
+    push_partial<C>(slot_r, warp_dot(r + row0, r + row0, rows), rank);
+  }
+  cluster_sync();  // r complete in every CTA
+  float rs = cluster_sum<C>(slot_r);
+  if (warm)
+    for (int j = tid; j < ld; j += nt) p[j] = r[j];
+  __syncthreads();
+
+  for (int it = 0; it < iters; ++it) {
+    slice_matvec(Ks, p, ap, rows, ld);  // Kp
+    __syncthreads();
+    if (w0) push_partial<C>(slot_d, warp_dot(p + row0, ap, rows), rank);
+    cluster_sync();  // (1)
+    const float alpha = safe_div(rs, cluster_sum<C>(slot_d));
+    if (w0) {
+      float s = 0.f;
+      for (int i = lane; i < rows; i += 32) {
+        const int j = row0 + i;
+        x[i] += alpha * p[j];
+        const float ri = r[j] - alpha * ap[i];
+        push_all<C>(r, j, ri);
+        s += ri * ri;
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        s += __shfl_xor_sync(0xffffffffu, s, o);
+      push_partial<C>(slot_r, s, rank);
+    }
+    cluster_sync();  // (2) r complete in every CTA; no push after the last
+    const float rs_new = cluster_sum<C>(slot_r);
+    const float beta = safe_div(rs_new, rs);
+    for (int j = tid; j < ld; j += nt) p[j] = r[j] + beta * p[j];
+    rs = rs_new;
+    __syncthreads();
+  }
+  for (int i = tid; i < rows; i += nt) out[row0 + i] = x[i];
+}
+
+// One cluster of C CTAs, launched as B10's.
+template <int C>
+int cg_cluster(const float* K, const float* b, const float* x0, float* out,
+               int M, int iters, int warm, cudaStream_t st) {
+  const size_t smem = cg_cluster_smem(M, C);
+  if (M < 1 || iters < 0 || smem > kSmemBlock)
+    return (int)cudaErrorInvalidValue;
+  static size_t fits = 0;
+  return ttnx_cluster::launch_cluster(cg_cluster_kernel<C>, C,
+                                      kClusterThreads, smem, st, &fits, K, b,
+                                      x0, out, M, iters, warm);
 }
 }  // namespace ttnx_cg
 
 using namespace ttnx_cg;
+
+extern "C" int ttnx_cg_solve_cluster_f32(const void* K, const void* b,
+                                         const void* x0, void* out, int M,
+                                         int iters, int warm, void* stream) {
+  return cg_cluster<kCluster>((const float*)K, (const float*)b,
+                              (const float*)x0, (float*)out, M, iters, warm,
+                              (cudaStream_t)stream);
+}
 
 extern "C" int ttnx_bicgstab_cluster_f32(const void* K, const void* b,
                                          void* out, int M, int iters,

@@ -15,7 +15,8 @@ entry point takes ``c_void_p`` for pointers and the stream, ``c_int`` for
 sizes, and returns ``cudaGetLastError()`` after its launches. Each entry
 point exists for the dtype suffixes its signature lists: ``f32`` and
 ``f64`` for the linear-algebra kernels, ``f32`` alone for the
-site-resident routes of B7 and B4/B5 and the cluster route of B10,
+site-resident routes of B7 and B4/B5 and the cluster routes of B3, B9
+and B10,
 ``bf16`` and ``f32`` for the contraction kernels, ``bf16`` alone for
 their tensor-core routes.
 """
@@ -54,8 +55,10 @@ _SIGNATURES = {
     "env_chain_A_left": ([P, P, P, P, I, I, I, I, P], REAL),
     # K, v0, Q, alphas, betas, M, iters, stream
     "lanczos": ([P, P, P, P, P, I, I, P], REAL),
+    "lanczos_cluster": ([P, P, P, P, P, I, I, P], ("f32",)),
     # K, rhs, x0, out, M, iters, warm, stream
     "cg_solve": ([P, P, P, P, I, I, I, P], REAL),
+    "cg_solve_cluster": ([P, P, P, P, I, I, I, P], ("f32",)),
     # K, rhs, out, M, iters, stream
     "bicgstab": ([P, P, P, I, I, P], REAL),
     "bicgstab_cluster": ([P, P, P, I, I, P], ("f32",)),

@@ -12,12 +12,13 @@ by BiCGStab, always from a cold start as the JAX kernel does.
 ``x0`` and ``iters`` are keyword-only (the JAX twin takes ``x0`` as its
 third positional parameter, ahead of ``iters``).
 
-B10 picks its kernel by dtype and size, never on a failure
-(:func:`bicgstab_route`; the last launch's route is
-``bicgstab_solve_fused.route``): ``"cluster"`` — f32 with ``M <=
-CLUSTER_MAX_M``, one cluster of 8 CTAs holding K's rows in their shared
-memory (``csrc/dense_cluster.cuh``); ``"l2"`` — f64 and larger M, one
-block streaming K from L2.
+B3 and B10 pick their kernels by dtype and size, never on a failure
+(:func:`cg_route`, :func:`bicgstab_route`; the last launch's route is
+``cg_solve_fused.route`` / ``bicgstab_solve_fused.route``):
+``"cluster"`` — f32 with ``M <= CG_CLUSTER_MAX_M`` / ``CLUSTER_MAX_M``,
+one cluster of 8 CTAs holding K's rows in their shared memory
+(``csrc/dense_cluster.cuh``); ``"l2"`` — f64 and larger M, one block
+streaming K from L2.
 """
 
 from __future__ import annotations
@@ -27,8 +28,9 @@ import torch
 from ttnx_torch.kernels import _build
 from ttnx_torch.kernels.dispatch import counted, require_real, use_kernel
 
-__all__ = ["cg_solve_fused", "cg_solve_plain", "bicgstab_solve_fused",
-           "bicgstab_solve_plain", "bicgstab_route", "cluster_smem"]
+__all__ = ["cg_solve_fused", "cg_solve_plain", "cg_route", "cg_cluster_smem",
+           "bicgstab_solve_fused", "bicgstab_solve_plain", "bicgstab_route",
+           "cluster_smem"]
 
 SMEM_BLOCK = 232448  # shared memory one block can use on the H100
 CLUSTER = 8          # CTAs of the cluster route: the portable maximum
@@ -48,6 +50,26 @@ def cluster_smem(M: int, C: int = CLUSTER) -> int:
 
 CLUSTER_MAX_M = max(M for M in range(1, 1025)
                     if cluster_smem(M) <= SMEM_BLOCK)  # 668
+
+
+def cg_cluster_smem(M: int, C: int = CLUSTER) -> int:
+    """Bytes of shared memory one CTA of B3's cluster route holds for K
+    (M, M): its ``ceil(M / C)`` rows of K and full p and r (rows of
+    ``up4(M)`` floats), its slices of x and K p and two slot arrays of
+    C."""
+    rpc = (M + C - 1) // C
+    return 4 * (rpc * _up4(M) + 2 * _up4(M) + 2 * _up4(rpc) + 2 * C)
+
+
+CG_CLUSTER_MAX_M = max(M for M in range(1, 1025)
+                       if cg_cluster_smem(M) <= SMEM_BLOCK)  # 672
+
+
+def cg_route(dtype, M: int) -> str:
+    """The kernel of :func:`cg_solve_fused` for ``K (M, M)``:
+    ``"cluster"`` or ``"l2"``."""
+    return "cluster" if dtype == torch.float32 and M <= CG_CLUSTER_MAX_M \
+        else "l2"
 
 
 def bicgstab_route(dtype, M: int) -> str:
@@ -102,11 +124,16 @@ def cg_solve_fused(K, rhs, *, x0=None, iters: int = 48):
     K, rhs = K.contiguous(), rhs.contiguous()
     x0c = rhs if x0 is None else x0.contiguous()  # unread when cold
     out = torch.empty_like(rhs)
-    _build.call("cg_solve", K.dtype, K.data_ptr(), rhs.data_ptr(),
-                x0c.data_ptr(), out.data_ptr(), M, int(iters),
-                int(x0 is not None))
+    route = cg_route(K.dtype, M)
+    _build.call("cg_solve_cluster" if route == "cluster" else "cg_solve",
+                K.dtype, K.data_ptr(), rhs.data_ptr(), x0c.data_ptr(),
+                out.data_ptr(), M, int(iters), int(x0 is not None))
     cg_solve_fused.launches += 1
+    cg_solve_fused.route = route
     return out
+
+
+cg_solve_fused.route = None
 
 
 def bicgstab_solve_plain(K, rhs, *, iters: int = 32):

@@ -2,7 +2,9 @@
 Hamiltonians.
 
 Cores are small structured constants assembled with numpy and moved once
-to the requested device. Layout: ``(r_left, n_out, n_in, r_right)``.
+to the device the caller names: ``device`` is a required keyword of
+every constructor (there is no default device). Layout: ``(r_left,
+n_out, n_in, r_right)``.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ _J = np.array([[0.0, 1.0], [0.0, 0.0]])  # superdiagonal shift block
 _JT = _J.T
 
 
-def _op(blocks, dtype=torch.float64, device="cpu") -> TTOperator:
+def _op(blocks, dtype, *, device) -> TTOperator:
     """Build a TTOperator from per-site nested lists of 2x2 physical blocks
     (or ``0``); entry ``(a, b)`` connects left bond a to right bond b."""
     np_dtype = np.complex128 if dtype.is_complex else np.float64
@@ -40,7 +42,7 @@ def _op(blocks, dtype=torch.float64, device="cpu") -> TTOperator:
 
 
 def toeplitz_to_qtto(alpha, beta, gamma, d: int, *, dtype=torch.float64,
-                     device="cpu") -> TTOperator:
+                     device) -> TTOperator:
     """Rank-3 exact QTT of the tridiagonal Toeplitz matrix
     ``alpha*I + beta*sub + gamma*super``."""
     first = [[_ID, _JT, _J]]
@@ -48,8 +50,9 @@ def toeplitz_to_qtto(alpha, beta, gamma, d: int, *, dtype=torch.float64,
     last = [[alpha * _ID + beta * _J + gamma * _JT], [gamma * _J],
             [beta * _JT]]
     if d == 1:
-        return _op([[[alpha * _ID + beta * _J + gamma * _JT]]], dtype, device)
-    return _op([first] + [mid] * (d - 2) + [last], dtype, device)
+        return _op([[[alpha * _ID + beta * _J + gamma * _JT]]], dtype,
+                   device=device)
+    return _op([first] + [mid] * (d - 2) + [last], dtype, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -91,22 +94,22 @@ def _torch_dtype(*arrays_or_scalars):
         else torch.float64
 
 
-def pauli_sum_tto(mu, d: int, *, device="cpu") -> TTOperator:
+def pauli_sum_tto(mu, d: int, *, device) -> TTOperator:
     """Rank-2 MPO of ``sum_i P_mu^(i)``."""
     if d < 1:
         raise ValueError("number of spin sites must be at least 1")
     P = pauli_matrix(mu)
     dtype = _torch_dtype(P)
     if d == 1:
-        return _op([[[P]]], dtype, device)
+        return _op([[[P]]], dtype, device=device)
     eye = np.eye(2)
     first = [[P, eye]]
     mid = [[eye, 0], [P, eye]]
     last = [[eye], [P]]
-    return _op([first] + [mid] * (d - 2) + [last], dtype, device)
+    return _op([first] + [mid] * (d - 2) + [last], dtype, device=device)
 
 
-def pauli_pair_sum_tto(mu, nu, d: int, *, device="cpu") -> TTOperator:
+def pauli_pair_sum_tto(mu, nu, d: int, *, device) -> TTOperator:
     """Rank-3 nearest-neighbour MPO of ``sum_i P_mu^(i) P_nu^(i+1)``."""
     if d < 2:
         raise ValueError("nearest-neighbor Pauli pair sum needs at least 2 "
@@ -117,19 +120,19 @@ def pauli_pair_sum_tto(mu, nu, d: int, *, device="cpu") -> TTOperator:
     mid = [[eye, 0, 0], [Pnu, 0, 0], [0, Pmu, eye]]
     last = [[eye], [Pnu], [0]]
     return _op([first] + [mid] * (d - 2) + [last], _torch_dtype(Pmu, Pnu),
-               device)
+               device=device)
 
 
-def H_mu(mu, d: int, *, device="cpu") -> TTOperator:
+def H_mu(mu, d: int, *, device) -> TTOperator:
     return pauli_sum_tto(mu, d, device=device)
 
 
-def H_munu(mu, nu, d: int, *, device="cpu") -> TTOperator:
+def H_munu(mu, nu, d: int, *, device) -> TTOperator:
     return pauli_pair_sum_tto(mu, nu, d, device=device)
 
 
 def heisenberg_xyz_tto(d: int, jx=1.0, jy=1.0, jz=1.0, lam=0.0, field="x",
-                       *, device="cpu") -> TTOperator:
+                       *, device) -> TTOperator:
     """Open-boundary Heisenberg XYZ Hamiltonian as a direct rank-5 MPO
     ``H = jx H_xx + jy H_yy + jz H_zz + lam H_field``."""
     if d < 2:
@@ -149,11 +152,11 @@ def heisenberg_xyz_tto(d: int, jx=1.0, jy=1.0, jz=1.0, lam=0.0, field="x",
         [lam * Pf, jx * Px1, jy * Py1, jz * Pz1, eye],
     ]
     last = [[eye], [Px2], [Py2], [Pz2], [lam * Pf]]
-    return _op([first] + [mid] * (d - 2) + [last], dtype, device)
+    return _op([first] + [mid] * (d - 2) + [last], dtype, device=device)
 
 
 def ising_tto(d: int, J=1.0, h=0.0, interaction="z", field="x", *,
-              device="cpu") -> TTOperator:
+              device) -> TTOperator:
     axis = _pauli_axis(interaction)
     jx = J if axis == "x" else 0.0
     jy = J if axis == "y" else 0.0
@@ -163,17 +166,17 @@ def ising_tto(d: int, J=1.0, h=0.0, interaction="z", field="x", *,
 
 
 def xxz_tto(d: int, J=1.0, delta=1.0, h=0.0, field="z", *,
-            device="cpu") -> TTOperator:
+            device) -> TTOperator:
     return heisenberg_xyz_tto(d, jx=J, jy=J, jz=J * delta, lam=h, field=field,
                               device=device)
 
 
-def xxx_tto(d: int, J=1.0, h=0.0, field="z", *, device="cpu") -> TTOperator:
+def xxx_tto(d: int, J=1.0, h=0.0, field="z", *, device) -> TTOperator:
     return heisenberg_xyz_tto(d, jx=J, jy=J, jz=J, lam=h, field=field,
                               device=device)
 
 
 def xy_tto(d: int, jx=1.0, jy=1.0, h=0.0, field="z", *,
-           device="cpu") -> TTOperator:
+           device) -> TTOperator:
     return heisenberg_xyz_tto(d, jx=jx, jy=jy, jz=0.0, lam=h, field=field,
                               device=device)

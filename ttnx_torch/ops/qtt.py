@@ -45,8 +45,9 @@ def _qtt_trig(d: int, a: float, b: float, lam: float, first_row, last_col,
 
 
 def qtt_sin(d: int, a: float = 0.0, b: float = 1.0, lam: float = 1.0, *,
-            dtype=torch.float64, device="cpu") -> TTVector:
-    """Exact rank-2 QTT of ``sin(lam*pi*x)`` on the uniform grid of [a, b]."""
+            dtype=torch.float64, device) -> TTVector:
+    """Exact rank-2 QTT of ``sin(lam*pi*x)`` on the uniform grid of [a, b],
+    on ``device`` (a required keyword)."""
     return _qtt_trig(
         d, a, b, lam,
         first_row=lambda t: [math.sin(lam * math.pi * t),
