@@ -12,9 +12,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    float32 and float64; max relative error (<= 1e-4 f32, <= 1e-10 f64)
    and median time of kernel and plain version. B3 also on a seeded SPD
    K at M = 509 (neither a multiple of 4 nor of 8), f32 and f64, and twice
-   on the same inputs at r16 in f32 (bit-identical). Each B3 and B4 line
-   names the kernel route the wrapper chose (cg_route: "cluster" for f32
-   at M <= 672, else "l2").
+   on the same inputs at r16 in f32 (bit-identical), as B2 is at every
+   rank in f32. Each B2, B3 and B4 line names the kernel route the wrapper
+   chose (cg_route: "cluster" for f32 at M <= 672, else "l2"; env_route:
+   B2 "cluster" for f32 at ranks 16, 32 and 64, else "staged").
 3b. Batched kernels: B5-B7 against their plain versions at R = 64 and
    32, float32 and float64, on B = 8 distinct problems: B5 and B6 on the
    inputs one als_sweeps_b call gives them (b[i] = (1 + 0.2 i) u_s, x[i] =
@@ -24,7 +25,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    two B7 cases at R = 32: cg_refine=2, cg_polish=2 and cg_polish=2; and
    B5 and B6 (right and left) at B = 512 on the inputs one als_sweeps_b
    call on phase 5's problem gives them, with their shares of their
-   bounds. Each B7 line names the kernel
+   bounds; every f32 B6 call also twice on the same inputs (bit-identical).
+   Each B6 line names its route (env_route: "resident" for f32 at R = 64
+   and 32, else "staged") and its share of its bound. Each B7 line names
+   the kernel
    route the wrapper chose (sweep_route: "site" for f32 at R = 64 and 32
    without a refine stage, else "folded"), each B4/B5 line in phases 3
    and 3b likewise (matfree_route: "resident" for f32 at R = 64 and 32,
@@ -35,18 +39,23 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    ms/step and GFLOP/s through the kernels and through the plain versions,
    agreement of the two 8-step states (rel <= 1e-4), and the kernel launch
    counts per step (B1 = 1, B2 = 1 right + 1 left, B3/B4 = 22/0 at rank 16,
-   0/22 at ranks 32 and 64), every B3 launch on route "cluster" and B4 on
-   route "resident".
+   0/22 at ranks 32 and 64), every B2 and B3 launch on route "cluster" and
+   B4 on route "resident".
 5. Batched path: 512 rank-64 d=12 implicit heat solves (f32, no TF32)
    through both routes of the bench ladder, explicit_kernel (als_sweeps_b,
-   cg_fused, 16 warm CG iterations: B6 2 launches, B5 22 on route
-   "resident") and
+   cg_fused, 16 warm CG iterations: B6 2 launches on route "resident",
+   B5 22 on route "resident") and
    sweep_pair_fused (B7, one launch): solves/s and GFLOP/s (median of 3
    calls after a warm-up) through the kernels and through the plain
    versions, element 0's residual against the exact tridiagonal operator
    (<= 1e-2) and the kernel-against-plain agreement of its represented
    vector (<= 1e-4); the sweep_pair_fused line names B7's route and its
    share of its bound at B = 512.
+3e. B2 and B6 by route: B2 on the CN step's chains at ranks 16, 32 and
+   64 and B6 on phase 5's two calls at B = 512, timed (CUDA events)
+   interleaved: new route, "staged", "staged", new route; then the device
+   kernel time a call (torch.profiler) of the CN r16 and r64 steps and of
+   the explicit batched call with the B2/B6 route forced either way.
 3c. DMRG kernels: B8 (operator-only env chain, right and left) on the
    inputs one dmrg_eig_sweep gives it at R = 16 (d = 10) and R = 64
    (d = 12), and B9 (fused Lanczos, M = 1024, iters 8 and 24) on a seeded
@@ -202,6 +211,8 @@ KERNELS = {
 }
 CN_KERNELS = ("gram_chain_fused", "right_env_chain_fused",
               "left_env_chain_fused", "cg_solve_fused", "cg_matfree_fused")
+B2 = ("right_env_chain_fused", "left_env_chain_fused")
+B2_B3 = B2 + ("cg_solve_fused",)  # held twice for bit-identity in f32
 
 
 def log(msg: str) -> None:
@@ -542,7 +553,7 @@ def phase_kernels(device):
             inputs = capture_inputs(rmax, device, dtype)
             for name, (args, kwargs) in inputs.items():
                 rows.append(hold(name, rmax, dtype, args, kwargs))
-                if name == "cg_solve_fused" and dtype == torch.float32:
+                if name in B2_B3 and dtype == torch.float32:
                     deterministic(name, args, kwargs)
         K, rhs, x0 = spd_problem(509, dtype, device)
         rows.append(hold("cg_solve_fused", 16, dtype, (K, rhs),
@@ -599,6 +610,10 @@ def phase_batched_kernels(device):
                                            (" right", " left")):
                 rows.append(hold("env_chain_fused_batched", rmax, dtype,
                                  args, kwargs, tag=tag))
+                if dtype == torch.float32:
+                    log_bound("B6", f" B={BATCH_CHECK} r{rmax}{tag}",
+                              rows[-1])
+                    deterministic("env_chain_fused_batched", args, kwargs)
             p, b, x = flat_batch(device, dtype, rmax)
             sweep = (p["lhs_stack"], b, x, p["masks"])
             rows.append(hold("als_fwd_bwd_fused_batched", rmax, dtype, sweep,
@@ -618,13 +633,18 @@ def phase_batched_kernels(device):
     for label, name, (args, kwargs), side in held:
         row = hold(name, 64, torch.float32, args, kwargs, reps=1, repeats=3,
                    tag=f" B={BATCH}{side}")
-        bound_ms, by = bound(row)
-        route = f" route {row['route']}" if row["route"] else ""
-        log(f"kernel {label} B={BATCH}{side}{route}: {row['ms']:.3f} ms, "
-            f"{bound_ms / row['ms']:.3f} of its {by} bound {bound_ms:.4f} "
-            f"ms")
+        log_bound(label, f" B={BATCH}{side}", row)
+        if label == "B6":
+            deterministic(name, args, kwargs)
         rows.append(row)
     return rows
+
+
+def log_bound(label, what, row):
+    bound_ms, by = bound(row)
+    route = f" route {row['route']}" if row["route"] else ""
+    log(f"kernel {label}{what}{route}: {row['ms']:.4f} ms, "
+        f"{bound_ms / row['ms']:.3f} of its {by} bound {bound_ms:.4f} ms")
 
 
 def bench_batch_calls(device):
@@ -672,7 +692,7 @@ def phase_main_path(device):
     for rmax in RANKS:
         step_fn, us, unpack = setup(rmax, device)
         before = launch_counts()
-        with route_log("cg_solve_fused") as routes:
+        with route_log("cg_solve_fused", *B2) as routes:
             one = step_fn(us)
         torch.cuda.synchronize()
         per_step = {k: v - before[k] for k, v in launch_counts().items()}
@@ -692,6 +712,10 @@ def phase_main_path(device):
         if b3 != ["cluster"] * per_step["cg_solve_fused"]:
             raise RuntimeError(f"r{rmax}: B3 took routes {b3}, not all "
                                f"cluster")
+        b2 = routes[B2[0]] + routes[B2[1]]
+        if b2 != ["cluster"] * 2:
+            raise RuntimeError(f"r{rmax}: B2 took routes {b2}, not all "
+                               f"cluster")
         if one.shape != us.shape or not bool(torch.isfinite(one).all()):
             raise RuntimeError(f"r{rmax}: step output is not a finite "
                                f"{tuple(us.shape)} stack")
@@ -709,7 +733,8 @@ def phase_main_path(device):
             f"GFLOP/s) | plain {plain_ms:.3f} ms/step | traj rel "
             f"{rel:.3e} (<= 1e-3) residual {res:.3e} (<= 1e-2) | kernel vs "
             f"plain 8-step rel {agree:.3e} (<= 1e-4) | launches/step "
-            f"{per_step}{f' | B4 route {b4}' if b4 else ''}"
+            f"{per_step} | B2 routes {set(b2)}"
+            f"{f' | B4 route {b4}' if b4 else ''}"
             f"{f' | B3 routes {set(b3)}' if b3 else ''}")
         if not (np.isfinite(rel) and rel <= 1e-3 and res <= 1e-2
                 and agree <= 1e-4):
@@ -770,9 +795,14 @@ def phase_batched_path(device):
     route_counts = {}
     for route, (run, applies, launched) in routes.items():
         reset_launch_counts()
-        run()
+        with route_log("env_chain_fused_batched") as taken:
+            run()
         torch.cuda.synchronize()
         counts = launch_counts()
+        b6 = taken["env_chain_fused_batched"]
+        if route == "explicit_kernel" and b6 != ["resident"] * 2:
+            raise RuntimeError(f"{route}: B6 took routes {b6}, not both "
+                               f"resident")
         want = {k: launched.get(k, 0) for k in counts}
         if counts != want:
             raise RuntimeError(f"{route}: launches per call {counts}, "
@@ -795,7 +825,8 @@ def phase_batched_path(device):
                       / np.linalg.norm(x0))
         gflops = BATCH * als_sweeps_flops(D, 64, A.shape[1], 64,
                                           cg_iters=applies) / sec / 1e9
-        kernel = f" | B5 route {b5}" if route == "explicit_kernel" else ""
+        kernel = (f" | B5 route {b5}, B6 routes {b6}"
+                  if route == "explicit_kernel" else "")
         if route == "sweep_pair_fused":
             name = "als_fwd_bwd_fused_batched"
             bound_ms, by = bound(dict(work=work(name, (A, bb, xb, masks), {},
@@ -1213,6 +1244,102 @@ def phase_new_kernels(device):
     return rows
 
 
+@contextlib.contextmanager
+def forced_env_route(route):
+    """Inside the block every B2 and B6 launch takes ``route``."""
+    from ttnx_torch.kernels import env_chain
+
+    chosen = env_chain.env_route
+    env_chain.env_route = lambda *shape: route
+    try:
+        yield
+    finally:
+        env_chain.env_route = chosen
+
+
+def profiler(activities):
+    """A torch.profiler window that keeps every event of the window (no
+    cycle clears them, where the installed torch has the option)."""
+    from torch.profiler import profile
+
+    try:
+        return profile(activities=activities, acc_events=True)
+    except TypeError:
+        return profile(activities=activities)
+
+
+def device_ms(run, n, part=""):
+    """(wall ms, device kernel ms, kernels, device ms of the kernels whose
+    name holds ``part``) a call of ``run`` over ``n`` calls in one
+    torch.profiler window, after one warm call."""
+    from torch.profiler import ProfilerActivity
+
+    run()
+    torch.cuda.synchronize()
+    with profiler([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / n * 1e3
+    dev, kernels, some = 0.0, 0, 0.0
+    for e in prof.events():
+        if str(getattr(e, "device_type", "")).endswith("CUDA"):
+            t = getattr(e, "device_time", None)
+            t = e.cuda_time if t is None else t
+            dev += t
+            kernels += 1
+            some += t if part and part in e.name else 0.0
+    return wall, dev / n / 1e3, kernels / n, some / n / 1e3
+
+
+def phase_env_routes(device):
+    """3e: B2 (r16, r32, r64, right and left) and B6 (B = BATCH) timed by
+    route, interleaved (new, staged, staged, new), then the device time of
+    the CN r16 and r64 steps and of the explicit batched call with the
+    B2/B6 route forced each way (torch.profiler)."""
+    from ttnx_torch.entry import batched_als_problem
+    from ttnx_torch.solvers.als_scan_batched import als_sweeps_b
+
+    cases = []
+    for rmax in RANKS:
+        inputs = capture_inputs(rmax, device, torch.float32)
+        for name, side in zip(B2, (" right", " left")):
+            cases.append((f"B2 r{rmax}{side}", name, *inputs[name], 10,
+                          "cluster"))
+    seen = bench_batch_calls(device)
+    for call, side in zip(seen["env_chain_fused_batched"],
+                          (" right", " left")):
+        cases.append((f"B6 B={BATCH}{side}", "env_chain_fused_batched",
+                      *call, 1, "resident"))
+    for label, name, args, kwargs, reps, new in cases:
+        kernel = wrappers()[name][0]
+        times = []
+        for route in (new, "staged", "staged", new):
+            with forced_env_route(route):
+                times.append(cuda_ms(lambda: kernel(*args, **kwargs), reps,
+                                     3))
+        log(f"interleaved {label} ({new}, staged, staged, {new}): "
+            f"{', '.join(f'{t:.4f}' for t in times)} ms")
+    runs = []
+    for rmax in (16, 64):
+        step_fn, us, _ = setup(rmax, device)
+        runs.append((f"cn_step d={D} r{rmax}", lambda f=step_fn, u=us: f(u),
+                     N_STEPS, "cluster"))
+    p = batched_als_problem(device, batch=BATCH, rmax=64, d=D, h=H_STEP)
+    runs.append((f"batched explicit_kernel B={BATCH}", lambda: als_sweeps_b(
+        p["lhs_stack"], p["b_batch"], p["x_batch"], p["masks"], 2,
+        cg_iters=CG_ITERS, solver="cg_fused"), 1, "resident"))
+    for label, run, n, new in runs:
+        for route in (new, "staged"):
+            with forced_env_route(route):
+                wall, dev, kernels, env = device_ms(run, n, "ttnx_env")
+            log(f"profile {label}, B2/B6 route {route}: wall {wall:.3f} ms,"
+                f" device kernels {dev:.3f} ms a call ({kernels:.0f} "
+                f"kernels; B2/B6 {env:.3f} ms), busy share "
+                f"{dev / wall:.3f}")
+
+
 def phase_convection_path(device):
     """8: the convection-diffusion CN step; returns the launch counts."""
     from ttnx_torch.core.algebra import add_op
@@ -1254,7 +1381,8 @@ def phase_convection_path(device):
     agree = float(np.linalg.norm(d8 - dense(unpack, p8))
                   / np.linalg.norm(d8))
     # the MPO rank only: built on the host, as id_tto is
-    RA = max(add_op(id_tto(D), convection_operator(D, CONV_C, "cpu")).ranks)
+    RA = max(add_op(id_tto(D, device="cpu"),
+                    convection_operator(D, CONV_C, "cpu")).ranks)
     gflops = cn_step_bicgstab_flops(D, CONV_RMAX, RA, RA,
                                     bicg_iters=BICG_ITERS) / (ms * 1e-3) / 1e9
     log(f"convection cn_step d={D} r{CONV_RMAX} c={CONV_C:g} f32 "
@@ -1399,8 +1527,11 @@ def summarize(rows, path_rows, counts):
         bound_ms, by = bound(r)
         if r.get("route") == "site":
             source = "ttnx_torch/csrc/als_sweep_site.cu"
-        if r.get("route") == "resident":
+        if r.get("route") == "resident" and label in ("B4", "B5"):
             source = "ttnx_torch/csrc/local_cg_site.cu"
+        if r.get("route") in ("resident", "cluster") and label in ("B2",
+                                                                   "B6"):
+            source = "ttnx_torch/csrc/env_chain_site.cu"
         summary.append({"name": f"{label} {name}", "route": "cuda",
                         "kernel_route": r.get("route"),
                         "source": source, "replaces": replaces,
@@ -1429,6 +1560,7 @@ def main() -> int:
             + phase_dmrg_kernels(device) + phase_new_kernels(device))
     counts = phase_main_path(device)
     later = list(phase_batched_path(device).values())
+    phase_env_routes(device)
     later += [phase_dmrg_path(device), phase_tdvp_path(device),
               phase_convection_path(device)]
     contraction_counts, path_rows = phase_contraction_path(device)

@@ -3,8 +3,9 @@
 // local_cg_site.cu and their site_engine.cuh) under
 // tests/cuda_emu/emulate_site.cpp and emulate_matfree.cpp, and the
 // cluster routes of B10 and B3 (local_cg.cu with dense_cluster.cuh)
-// under emulate_cluster.cpp and of B9 (lanczos.cu) under
-// emulate_lanczos.cpp. The runtime half (threads, barriers, clusters) is
+// under emulate_cluster.cpp, of B9 (lanczos.cu) under emulate_lanczos.cpp,
+// and both routes of env_chain_site.cu (B6 and B2) under
+// emulate_env.cpp. The runtime half (threads, barriers, clusters) is
 // emu_block.h; cooperative_groups.h is the cluster API on top of it.
 #pragma once
 #include <cmath>

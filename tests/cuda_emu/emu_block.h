@@ -2,7 +2,8 @@
 // declarations are in cuda_runtime.h and cooperative_groups.h): one
 // std::thread per CUDA thread, __syncthreads a block-wide std::barrier,
 // __shfl_xor_sync / __shfl_down_sync an exchange through a per-warp slot
-// array between two warp barriers. run_block runs one block; a cluster
+// array between two warp barriers. run_block runs one block,
+// emu_run_block_smem one block with dynamic shared memory; a cluster
 // launch (cudaLaunchKernelEx) runs its blocks at once, each with its own
 // dynamic shared memory, one cluster-wide barrier for all their threads,
 // and partner addresses mapped block to block. Included by the main
@@ -90,6 +91,21 @@ void run_block(int block, int threads, const F& body) {
   for (int t = 0; t < threads; ++t)
     pool.emplace_back(emu_thread, &self, nullptr, block, t, threads,
                       std::cref(f));
+  for (auto& t : pool) t.join();
+}
+
+// Runs body() in each of the `threads` threads of block `block`, with
+// `smem_bytes` of dynamic shared memory starting as NaN bytes (0xff).
+void emu_run_block_smem(int block, int threads, size_t smem_bytes,
+                        const std::function<void()>& body) {
+  EmuBlock self(threads);
+  std::vector<unsigned char> memory(smem_bytes + 1024, (unsigned char)0xff);
+  const auto at = reinterpret_cast<std::uintptr_t>(memory.data());
+  self.smem = memory.data() + ((1024 - at % 1024) % 1024);
+  std::vector<std::thread> pool;
+  for (int t = 0; t < threads; ++t)
+    pool.emplace_back(emu_thread, &self, nullptr, block, t, threads,
+                      std::cref(body));
   for (auto& t : pool) t.join();
 }
 

@@ -45,7 +45,7 @@ F64, F32 = np.float64, np.float32
 
 
 def _t(a, dt):
-    return stack_from_numpy(np.array(a, dtype=dt))
+    return stack_from_numpy(np.array(a, dtype=dt), device="cpu")
 
 
 def _close(got, ref, tol):

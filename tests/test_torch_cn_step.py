@@ -150,18 +150,19 @@ def test_rounding_matches_oracle(method, tol):
     big_j = j_rs.matvec_padded(ttnx.solvers.als_scan.pack_op(A_j, RA),
                                ttnx.solvers.als_scan.pack_tt(x_j, rmax))
     big = t_rs.matvec_padded(tx.pack_op(A_t, RA),
-                             tx.pack_tt(ttvector_from_numpy(cores), rmax))
+                             tx.pack_tt(ttvector_from_numpy(
+                                 cores, device="cpu"), rmax))
     assert _rel(big.numpy(), np.asarray(big_j)) <= 1e-14
     masks_A = np.zeros((d + 1, RA))
     for i, r in enumerate(A_j.ranks):
         masks_A[i, :r] = 1.0
-    mu = tx.rank_masks(ranks, rmax).numpy()
+    mu = tx.rank_masks(ranks, rmax, device="cpu").numpy()
     masks_big = torch.as_tensor(np.stack(
         [np.outer(masks_A[i], mu[i]).reshape(-1) for i in range(d + 1)]))
     big_rks = [min(a * b, RA * rmax) for a, b in zip(A_j.ranks, ranks)]
     out_rks = t_rs.round_masks(big_rks, rmax, (2,) * d)
     assert out_rks == j_rs.round_masks(big_rks, rmax, (2,) * d)
-    m_out = tx.rank_masks(out_rks, rmax)
+    m_out = tx.rank_masks(out_rks, rmax, device="cpu")
     if method == "gram_chain":
         y = t_rs.tt_round_gram(big, rmax, m_out)
     else:
@@ -177,12 +178,12 @@ def test_als_linsolve_scan_matches_ttnx():
     ranks = (1, 2, 3, 3, 3, 2, 1)
     x0 = [rng.standard_normal((ranks[k], 2, ranks[k + 1])) for k in range(d)]
     A_j = ttnx.id_tto(d) + 0.1 * ttnx.toeplitz_to_qtto(2.0, -1.0, -1.0, d)
-    A_t = tx.id_tto(d) + 0.1 * tx.toeplitz_to_qtto(2.0, -1.0, -1.0, d,
-                                                    device="cpu")
+    A_t = tx.id_tto(d, device="cpu") + 0.1 * tx.toeplitz_to_qtto(
+        2.0, -1.0, -1.0, d, device="cpu")
     ref = j_linsolve(A_j, ttnx.qtt_sin(d), ttnx.TTVector(
         [jnp.asarray(c) for c in x0]), sweep_count=4)
     got = tx.als_linsolve_scan(A_t, tx.qtt_sin(d, device="cpu"),
-                               ttvector_from_numpy(x0),
+                               ttvector_from_numpy(x0, device="cpu"),
                                sweep_count=4)
     assert _rel(t_dense(got).numpy(), np.asarray(j_dense(ref))) <= TOL
 

@@ -49,12 +49,12 @@ def _cores(rng, dims, ranks, op=False, complex_=False):
 
 def _pair_vec(cores, ot=None):
     return (jtt.TTVector([jnp.asarray(c) for c in cores], ot),
-            ttvector_from_numpy(cores, ot))
+            ttvector_from_numpy(cores, ot, device="cpu"))
 
 
 def _pair_op(cores):
     return (jtt.TTOperator([jnp.asarray(c) for c in cores]),
-            ttoperator_from_numpy(cores))
+            ttoperator_from_numpy(cores, device="cpu"))
 
 
 def _dense(x):
@@ -123,13 +123,14 @@ def test_r_and_d_to_rks(rks, dims, rmax):
 
 
 def test_factories_match():
-    _close(_dense(ttt.id_tto(4)), _dense(jtt.id_tto(4)))
-    _close(_dense(ttt.zeros_tt(DIMS, rmax=3)), _dense(jtt.zeros_tt(DIMS,
-                                                                   rmax=3)))
-    assert ttt.zeros_tt(DIMS, rmax=3).ranks == jtt.zeros_tt(DIMS, rmax=3).ranks
-    _close(_dense(ttt.ones_tt(DIMS)), _dense(jtt.ones_tt(DIMS)))
-    assert ttt.zeros_tto(DIMS, rmax=2).ranks == jtt.zeros_tto(DIMS,
-                                                              rmax=2).ranks
+    _close(_dense(ttt.id_tto(4, device="cpu")), _dense(jtt.id_tto(4)))
+    _close(_dense(ttt.zeros_tt(DIMS, rmax=3, device="cpu")),
+           _dense(jtt.zeros_tt(DIMS, rmax=3)))
+    assert (ttt.zeros_tt(DIMS, rmax=3, device="cpu").ranks
+            == jtt.zeros_tt(DIMS, rmax=3).ranks)
+    _close(_dense(ttt.ones_tt(DIMS, device="cpu")), _dense(jtt.ones_tt(DIMS)))
+    assert (ttt.zeros_tto(DIMS, rmax=2, device="cpu").ranks
+            == jtt.zeros_tto(DIMS, rmax=2).ranks)
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.complex128])
@@ -191,9 +192,10 @@ def test_scale(vecs, ops, a):
 
 
 def test_scale_keeps_f32():
-    x = ttt.ones_tt(DIMS, dtype=torch.float32)
+    x = ttt.ones_tt(DIMS, dtype=torch.float32, device="cpu")
     assert talg.scale(0.5, x).dtype == torch.float32
-    assert (0.5 * ttt.id_tto(3, dtype=torch.float32)).dtype == torch.float32
+    eye = ttt.id_tto(3, dtype=torch.float32, device="cpu")
+    assert (0.5 * eye).dtype == torch.float32
 
 
 def test_matvec_dot_norm(vecs, ops):
@@ -247,7 +249,7 @@ def test_rectangular_matvec():
 @pytest.mark.parametrize("index", [0, 2, 3])
 def test_ttv_decomp(index):
     t = np.random.default_rng(2).standard_normal(DIMS)
-    tx = tdec.ttv_decomp(t, index=index)
+    tx = tdec.ttv_decomp(t, index=index, device="cpu")
     jx = jdec.ttv_decomp(t, index=index)
     assert tx.ranks == jx.ranks and tx.ot == jx.ot
     _close(tdec.ttv_to_tensor(tx).numpy(), t)
@@ -256,7 +258,7 @@ def test_ttv_decomp(index):
 def test_tto_decomp_and_matricize(ops, vecs):
     (jA, tA), _ = ops
     dense = _dense(jA)
-    back = tdec.tto_decomp(dense)
+    back = tdec.tto_decomp(dense, device="cpu")
     _close(_dense(back), dense, tol=1e-10)
     (ja, ta), _ = vecs
     for core in (2, 4):
@@ -323,10 +325,10 @@ def test_qtt_sin(lam):
 
 def test_convert_round_trip(vecs):
     (ja, ta), _ = vecs
-    back = ttvector_from_numpy(to_numpy(ta))
+    back = ttvector_from_numpy(to_numpy(ta), device="cpu")
     for a, b in zip(back.cores, ta.cores):
         assert torch.equal(a, b)
-    s = stack_from_numpy(np.ones((2, 3)), dtype=torch.float32)
+    s = stack_from_numpy(np.ones((2, 3)), dtype=torch.float32, device="cpu")
     assert s.dtype == torch.float32 and to_numpy(s).shape == (2, 3)
     assert isinstance(to_numpy((s, [s]))[1], list)
     with pytest.raises(TypeError):

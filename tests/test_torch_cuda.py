@@ -292,6 +292,80 @@ def test_env_chain_batched_kernel(cuda, dtype, left, raw):
            _tol(dtype))
 
 
+def _site_problem(B, d, R, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, d, R, 2, R)) / np.sqrt(2 * R)
+    A = rng.standard_normal((d, 4, 2, 2, 4)) / 4
+    b = rng.standard_normal((B, d, R, 2, R)) / np.sqrt(2 * R)
+    return x, A, b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [16, 32, 64])
+@pytest.mark.parametrize("left", [False, True], ids=["right", "left"])
+def test_env_chain_cluster_route(cuda, R, left):
+    """B2 in f32 at (R, 2, 4), Rb = R: one launch on route cluster,
+    within 1e-4 of plain, two launches bit-identical."""
+    x, A, b = _site_problem(1, 5, R, R + left)
+    args = _on(cuda, torch.float32, x[0], A, b[0])
+    kernel = left_env_chain_fused if left else right_env_chain_fused
+    plain = left_env_chain_plain if left else right_env_chain_plain
+    before = kernel.launches
+    got, again = kernel(*args), kernel(*args)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2 and kernel.route == "cluster"
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    _close(got, plain(*args), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [64, 32])
+@pytest.mark.parametrize("left", [False, True], ids=["right", "left"])
+@pytest.mark.parametrize("raw", [False, True], ids=["public", "raw"])
+@pytest.mark.parametrize("shared_b", [False, True], ids=["b", "b_bcast"])
+def test_env_chain_resident_route(cuda, R, left, raw, shared_b):
+    """B6 in f32 at (R, 2, 4), Rb = R, B = 3: route resident, within 1e-4
+    of plain in either layout, with distinct right-hand sides or one
+    broadcast over the batch (read in place)."""
+    x, A, b = _site_problem(3, 4, R, 2 * R + left)
+    xt, At, bt = _on(cuda, torch.float32, x, A, b)
+    if shared_b:
+        bt = bt[:1].expand_as(bt)
+    got = env_chain_fused_batched(xt, At, bt, left=left, raw=raw)
+    torch.cuda.synchronize()
+    assert env_chain_fused_batched.route == "resident"
+    _close(got, env_chain_batched_plain(xt, At, bt, left=left, raw=raw),
+           1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batched", [False, True], ids=["B2", "B6"])
+def test_env_chain_f64_at_site_shapes_stays_staged(cuda, batched):
+    x, A, b = _site_problem(2, 3, 32, 9)
+    xt, At, bt = _on(cuda, torch.float64, x, A, b)
+    if batched:
+        got = env_chain_fused_batched(xt, At, bt)
+        ref, kernel = env_chain_batched_plain(xt, At, bt), \
+            env_chain_fused_batched
+    else:
+        got = right_env_chain_fused(xt[0], At, bt[0])
+        ref, kernel = right_env_chain_plain(xt[0], At, bt[0]), \
+            right_env_chain_fused
+    torch.cuda.synchronize()
+    assert kernel.route == "staged"
+    _close(got, ref, 1e-10)
+
+
+@pytest.mark.cuda
+def test_env_site_layout_matches_the_library(cuda):
+    from ttnx_torch.kernels import _build
+    from ttnx_torch.kernels.env_chain import site_layout
+
+    for R, S in ((64, 8), (64, 4), (32, 16), (32, 4), (16, 4)):
+        assert _build.query("env_site_smem", R, S) == site_layout(R,
+                                                                  S)["bytes"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,kw", [
     (torch.float32, {}), (torch.float64, {}),
@@ -309,7 +383,8 @@ def test_sweep_pair_kernel(cuda, dtype, kw):
     xb = bb + 0.3 * np.stack([flat_spectrum_stack(rng, rks, R)
                               for _ in range(B)])
     A = p["lhs_stack"].numpy()
-    args = _on(cuda, dtype, A, bb, xb, rank_masks(rks, R).numpy())
+    masks = rank_masks(rks, R, device="cpu").numpy()
+    args = _on(cuda, dtype, A, bb, xb, masks)
     kw = dict(kw, cg_iters=12, ns_iters=(16, 6))
     got = als_fwd_bwd_fused_batched(*args, **kw)
     torch.cuda.synchronize()

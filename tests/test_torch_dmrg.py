@@ -44,7 +44,7 @@ F64, F32 = np.float64, np.float32
 
 
 def _t(a, dt):
-    return stack_from_numpy(np.array(a, dtype=dt))
+    return stack_from_numpy(np.array(a, dtype=dt), device="cpu")
 
 
 def _close(got, ref, tol):
@@ -337,7 +337,7 @@ def test_eigsolve_scan_reaches_dense_ground_energy():
     d = 6
     H = ttnx_torch.xxx_tto(d, device="cpu")
     cores, _ = _orth_start(11, d, 2)
-    x0 = ttvector_from_numpy(cores)
+    x0 = ttvector_from_numpy(cores, device="cpu")
     E, x = ttnx_torch.dmrg_eigsolve_scan(H, x0, tol=1e-12, rmax=12,
                                          n_sweeps=4, lanczos_iters=30)
     E0 = dense_xxx_groundstate(d)
@@ -355,10 +355,11 @@ def test_linsolve_scan_matches_ttnx():
     bj = ttnx.qtt_sin(d)
     ref = jd.dmrg_linsolve_scan(Aj, bj, JVec([jnp.asarray(c) for c in cores]),
                                 tol=1e-12, rmax=8, n_sweeps=2)
-    At = ttoperator_from_numpy([np.asarray(c) for c in Aj.cores])
-    bt = ttvector_from_numpy([np.asarray(c) for c in bj.cores])
-    got = td.dmrg_linsolve_scan(At, bt, ttvector_from_numpy(cores), tol=1e-12,
-                                rmax=8, n_sweeps=2)
+    At = ttoperator_from_numpy([np.asarray(c) for c in Aj.cores], device="cpu")
+    bt = ttvector_from_numpy([np.asarray(c) for c in bj.cores], device="cpu")
+    got = td.dmrg_linsolve_scan(At, bt,
+                                ttvector_from_numpy(cores, device="cpu"),
+                                tol=1e-12, rmax=8, n_sweeps=2)
     assert got.ranks == ref.ranks
     _close(t_dense(got).numpy(), np.asarray(j_dense(ref)), 1e-10)
 

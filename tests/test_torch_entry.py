@@ -2,7 +2,8 @@
 says: every function that builds tensors takes a required ``device`` (no
 default, so nothing lands on the CPU unasked), and the others build on
 numpy and scipy alone (the oracles and the numpy state stacks). The
-constructors of ``ttnx_torch.ops`` likewise take a required ``device``."""
+constructors of ``ttnx_torch.ops``, of the core TT types, the rank masks
+and the numpy bridge likewise take a required ``device``."""
 
 import inspect
 
@@ -11,7 +12,10 @@ import pytest
 import torch
 
 from ttnx_torch import entry
+from ttnx_torch.core import decomp, tt
 from ttnx_torch.ops import operators, qtt
+from ttnx_torch.solvers import als_scan
+from ttnx_torch.utils import convert
 
 # entry points that take no device: numpy/scipy builders and oracles
 HOST_ONLY = {"flat_spectrum_stack", "dense_xxx_groundstate",
@@ -74,8 +78,29 @@ def test_constructors_cover_the_public_ops():
     assert set(qtt.__all__) <= named
 
 
-@pytest.mark.parametrize("fn,args", CONSTRUCTORS,
-                         ids=[fn.__name__ for fn, _ in CONSTRUCTORS])
+# the core constructors, the masks and the numpy bridge, likewise
+CORE_CONSTRUCTORS = [
+    (tt.zeros_tt, ((2, 2, 2),)),
+    (tt.ones_tt, ((2, 2, 2),)),
+    (tt.zeros_tto, ((2, 2, 2),)),
+    (tt.id_tto, (3,)),
+    (decomp.ttv_decomp, (np.ones((2, 2, 2)),)),
+    (decomp.tto_decomp, (np.eye(4).reshape(2, 2, 2, 2),)),
+    (als_scan.rank_masks, ((1, 2, 1), 2)),
+    (convert.ttvector_from_numpy, ([np.ones((1, 2, 1))],)),
+    (convert.ttoperator_from_numpy, ([np.ones((1, 2, 2, 1))],)),
+    (convert.stack_from_numpy, (np.ones((2, 3)),)),
+]
+
+
+def _devices(out):
+    return [out.device] if torch.is_tensor(out) else [c.device
+                                                      for c in out.cores]
+
+
+@pytest.mark.parametrize("fn,args", CONSTRUCTORS + CORE_CONSTRUCTORS,
+                         ids=[fn.__name__ for fn, _ in
+                              CONSTRUCTORS + CORE_CONSTRUCTORS])
 def test_ops_constructor_needs_a_device(fn, args):
     """No default device: a call without one raises TypeError, and the
     cores land where the caller says."""
@@ -85,4 +110,4 @@ def test_ops_constructor_needs_a_device(fn, args):
     with pytest.raises(TypeError):
         fn(*args)
     cpu = torch.device("cpu")
-    assert all(c.device == cpu for c in fn(*args, device=cpu).cores)
+    assert all(d == cpu for d in _devices(fn(*args, device=cpu)))

@@ -32,11 +32,13 @@ from ttnx.solvers.als_scan import _local_solve_padded as j_local_solve
 from ttnx_torch.kernels import _build, dispatch
 from ttnx_torch.kernels import als_sweep_fused  # noqa: F401  (registers B7)
 from ttnx_torch.kernels import contraction  # noqa: F401  (registers B11-B13)
-from ttnx_torch.kernels import lanczos, local_cg
-from ttnx_torch.kernels.env_chain import (left_env_chain_fused,
+from ttnx_torch.kernels import env_chain, lanczos, local_cg
+from ttnx_torch.kernels.env_chain import (env_chain_batched_plain,
+                                          env_chain_fused_batched, env_route,
+                                          left_env_chain_fused,
                                           left_env_chain_plain,
                                           right_env_chain_fused,
-                                          right_env_chain_plain)
+                                          right_env_chain_plain, site_layout)
 from ttnx_torch.kernels.gram import gram_chain_fused, gram_chain_plain
 from ttnx_torch.kernels.lanczos import (cluster_layout, lanczos_fused,
                                         lanczos_plain, lanczos_route)
@@ -395,6 +397,54 @@ def test_cpu_tensors_take_plain_b3_b9():
         assert torch.equal(g_, r_)
     assert (cg_solve_fused.launches, cg_solve_fused.route,
             lanczos_fused.launches, lanczos_fused.route) == before
+
+
+@pytest.mark.parametrize("dtype,B,R,n,RA,Rb,route", [
+    (T32, 1, 64, 2, 4, 64, "cluster"), (T32, 1, 32, 2, 4, 32, "cluster"),
+    (T32, 1, 16, 2, 4, 16, "cluster"), (T32, 512, 64, 2, 4, 64, "resident"),
+    (T32, 8, 32, 2, 4, 32, "resident"), (T32, 8, 16, 2, 4, 16, "staged"),
+    (T32, 1, 20, 2, 3, 12, "staged"), (T32, 3, 64, 2, 4, 32, "staged"),
+    (T32, 1, 64, 2, 5, 64, "staged"), (T32, 1, 24, 2, 4, 24, "staged"),
+    (T32, 1, 32, 3, 4, 32, "staged"),
+    (torch.float64, 1, 64, 2, 4, 64, "staged"),
+    (torch.float64, 512, 64, 2, 4, 64, "staged")])
+def test_env_route_by_dtype_and_shape(dtype, B, R, n, RA, Rb, route):
+    """B2 and B6 choose their CUDA kernel by dtype, batch and shape alone:
+    one f32 chain at ranks 16, 32, 64 the cluster, a batch at 32 or 64 the
+    resident block, everything else (f64, other n, RA, Rb, R) the staged
+    launches of ``env_chain.cu``."""
+    assert env_route(dtype, B, R, n, RA, Rb) == route
+
+
+def test_env_site_layouts_fit_one_block():
+    """Every block shape of routes resident and cluster fits the 227 KB of
+    one SM: 228,608 B at R = 64 with slabs of 8 (one block an SM)."""
+    assert site_layout(64, 8)["bytes"] == 228608 <= env_chain.SMEM_BLOCK
+    for R, S in env_chain.RESIDENT_SLAB.items():
+        assert site_layout(R, S)["bytes"] <= env_chain.SMEM_BLOCK
+    for R in env_chain.CLUSTER_RANKS:
+        assert site_layout(R, 4)["bytes"] <= env_chain.SMEM_BLOCK
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["B2", "B6"])
+def test_cpu_tensors_at_site_shapes_take_plain_b2_b6(batched):
+    """f32 at the new routes' shapes on the CPU: the plain versions, no
+    launch, the recorded route untouched."""
+    rng = np.random.default_rng(5)
+    d, R = 3, 16
+    x = _t(rng.standard_normal((2, d, R, 2, R)) / R, F32)
+    A = _t(rng.standard_normal((d, 4, 2, 2, 4)) / 4, F32)
+    b = _t(rng.standard_normal((2, d, R, 2, R)) / R, F32)
+    if batched:
+        wrapper, args = env_chain_fused_batched, (x, A, b)
+        ref = env_chain_batched_plain(*args)
+    else:
+        wrapper, args = right_env_chain_fused, (x[0], A, b[0])
+        ref = right_env_chain_plain(*args)
+    route, before = wrapper.route, wrapper.launches
+    for g_, r_ in zip(wrapper(*args), ref):
+        assert torch.equal(g_, r_)
+    assert (wrapper.launches, wrapper.route) == (before, route)
 
 
 def test_gate_rejects_other_devices_and_types():

@@ -36,6 +36,10 @@ D, RMAX = 6, 4
 GRAM_TRUNCERR = 1e-6
 
 
+def _cpu(a):
+    return stack_from_numpy(a, device="cpu")
+
+
 def _close(got, ref, tol):
     got, ref = np.asarray(got).reshape(-1), np.asarray(ref).reshape(-1)
     err = float(np.linalg.norm(got - ref))
@@ -102,10 +106,10 @@ def test_tdvp1_step_matches_ttnx(imag_real, h, expm):
     kw = dict(expm=expm, krylov_dim=8, imag_real=imag_real)
     ref = jt.tdvp1_step(jnp.asarray(A), jnp.asarray(x), jnp.asarray(m),
                         jnp.asarray(h, A.dtype), **kw)
-    got = tt.tdvp1_step(stack_from_numpy(A), stack_from_numpy(x),
-                        stack_from_numpy(m), h, **kw)
+    got = tt.tdvp1_step(_cpu(A), _cpu(x),
+                        _cpu(m), h, **kw)
     assert got.dtype == torch.float64 if imag_real else torch.complex128
-    _close(_t_state(got, stack_from_numpy(m)), _j_state(ref, m), 1e-10)
+    _close(_t_state(got, _cpu(m)), _j_state(ref, m), 1e-10)
 
 
 @pytest.mark.parametrize("expm,split", [("lanczos", "gram"),
@@ -118,8 +122,8 @@ def test_tdvp2_step_matches_ttnx(imag_real, h, expm, split):
     rx, rm = jt.tdvp2_step(jnp.asarray(A), jnp.asarray(x), jnp.asarray(m),
                            jnp.asarray(h, A.dtype), jnp.float64(te),
                            jnp.int32(RMAX), **kw)
-    gx, gm = tt.tdvp2_step(stack_from_numpy(A), stack_from_numpy(x),
-                           stack_from_numpy(m), h, te, RMAX, **kw)
+    gx, gm = tt.tdvp2_step(_cpu(A), _cpu(x),
+                           _cpu(m), h, te, RMAX, **kw)
     assert np.array_equal(gm.numpy(), np.asarray(rm))
     _close(_t_state(gx, gm), _j_state(rx, rm), 1e-10)
 
@@ -128,8 +132,8 @@ def _heat_and_sine(d):
     hg = 1.0 / (2 ** d + 1)
     Aj = (0.1 / hg ** 2) * ttnx.toeplitz_to_qtto(-2.0, 1.0, 1.0, d)
     uj = ttnx.qtt_sin(d, a=hg, b=1 - hg)
-    At = ttoperator_from_numpy([np.asarray(c) for c in Aj.cores])
-    ut = ttvector_from_numpy([np.asarray(c) for c in uj.cores])
+    At = ttoperator_from_numpy([np.asarray(c) for c in Aj.cores], device="cpu")
+    ut = ttvector_from_numpy([np.asarray(c) for c in uj.cores], device="cpu")
     return Aj, uj, At, ut
 
 
@@ -150,11 +154,11 @@ def test_tdvp2_scan_matches_ttnx_real_time():
     Hj = ttnx.xxz_tto(D, delta=0.7, h=0.3)
     cores = [np.asarray(c) for c in ttnx.qtt_sin(D).cores]
     u0j = JVec([jnp.asarray(c) for c in cores])
-    Ht = ttoperator_from_numpy([np.asarray(c) for c in Hj.cores])
+    Ht = ttoperator_from_numpy([np.asarray(c) for c in Hj.cores], device="cpu")
     ref = jt.tdvp2_scan(Hj, u0j, [0.05] * 2, rmax=RMAX, krylov_dim=8,
                         truncerr=1e-10)
-    got = tt.tdvp2_scan(Ht, ttvector_from_numpy(cores), [0.05] * 2,
-                        rmax=RMAX, krylov_dim=8, truncerr=1e-10)
+    got = tt.tdvp2_scan(Ht, ttvector_from_numpy(cores, device="cpu"),
+                        [0.05] * 2, rmax=RMAX, krylov_dim=8, truncerr=1e-10)
     assert got.ranks == ref.ranks
     _close(t_dense(got).numpy(), np.asarray(j_dense(ref)), 1e-10)
 
@@ -162,7 +166,7 @@ def test_tdvp2_scan_matches_ttnx_real_time():
 def test_lanczos_rejects_non_hermitian_generator():
     Aj, uj, At, ut = _heat_and_sine(4)
     At = ttoperator_from_numpy([np.asarray(c) for c in ttnx.toeplitz_to_qtto(
-        2.0, -1.0, -0.5, 4).cores])
+        2.0, -1.0, -0.5, 4).cores], device="cpu")
     with pytest.raises(ValueError, match="Hermitian"):
         tt.tdvp1_scan(At, ut, [0.01])
     with pytest.raises(ValueError):
@@ -192,10 +196,10 @@ def test_batched_tdvp1_steps_match_ttnx(imag_real, h):
     ht = h if np.isscalar(h) else torch.as_tensor(np.asarray(h, x.dtype))
     ref = j_batched1(jnp.asarray(A), jnp.asarray(x), jnp.asarray(m), hj,
                      **kw)
-    got = batched_tdvp1_steps(stack_from_numpy(A), stack_from_numpy(x),
-                              stack_from_numpy(m), ht, **kw)
+    got = batched_tdvp1_steps(_cpu(A), _cpu(x),
+                              _cpu(m), ht, **kw)
     for i in range(len(x)):
-        _close(_t_state(got[i], stack_from_numpy(m[i])),
+        _close(_t_state(got[i], _cpu(m[i])),
                _j_state(np.asarray(ref)[i], m[i]), 1e-10)
 
 
@@ -205,8 +209,8 @@ def test_batched_tdvp2_steps_match_ttnx():
     kw = dict(n_steps=2, krylov_dim=8, imag_real=True, split="gram")
     rx, rm = j_batched2(jnp.asarray(A), jnp.asarray(x), jnp.asarray(m),
                         jnp.asarray(h), GRAM_TRUNCERR, RMAX, **kw)
-    gx, gm = batched_tdvp2_steps(stack_from_numpy(A), stack_from_numpy(x),
-                                 stack_from_numpy(m),
+    gx, gm = batched_tdvp2_steps(_cpu(A), _cpu(x),
+                                 _cpu(m),
                                  torch.tensor(h, dtype=torch.float64),
                                  GRAM_TRUNCERR, RMAX, **kw)
     assert np.array_equal(gm.numpy(), np.asarray(rm))

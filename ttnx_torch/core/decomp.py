@@ -23,8 +23,8 @@ __all__ = [
 ]
 
 
-def ttv_decomp(tensor, index: int = 0, tol: float = 1e-12,
-               device="cpu") -> TTVector:
+def ttv_decomp(tensor, index: int = 0, tol: float = 1e-12, *,
+               device) -> TTVector:
     """Hierarchical TT-SVD of a dense tensor (numpy or CPU tensor), root
     core at ``index``: cores left of the root are left-orthogonal
     (ot=+1), right of it right-orthogonal (ot=-1). Singular values
@@ -102,8 +102,8 @@ def tto_to_tensor(A: TTOperator) -> torch.Tensor:
     return t.permute(perm)
 
 
-def tto_decomp(tensor, index: int = 0, tol: float = 1e-12,
-               device="cpu") -> TTOperator:
+def tto_decomp(tensor, index: int = 0, tol: float = 1e-12, *,
+               device) -> TTOperator:
     """TT-SVD of a dense operator given as ``T[x1..xd, y1..yd]``."""
     a = tensor.numpy() if isinstance(tensor, torch.Tensor) else np.asarray(tensor)
     assert a.ndim % 2 == 0

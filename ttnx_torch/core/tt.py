@@ -277,7 +277,7 @@ def _full_rks(dims, rmax: int) -> tuple[int, ...]:
 
 
 def zeros_tt(dims, rks=None, *, rmax: int | None = None,
-             dtype=torch.float64, device="cpu", ot=None) -> TTVector:
+             dtype=torch.float64, device, ot=None) -> TTVector:
     """All-zero TT vector with explicit ranks ``rks`` or a uniform cap
     ``rmax``."""
     dims = _as_tuple(dims)
@@ -291,7 +291,7 @@ def zeros_tt(dims, rks=None, *, rmax: int | None = None,
     return TTVector(cores, ot)
 
 
-def ones_tt(dims, dtype=torch.float64, device="cpu") -> TTVector:
+def ones_tt(dims, dtype=torch.float64, *, device) -> TTVector:
     """Rank-1 TT of all ones."""
     dims = _as_tuple(dims)
     return TTVector([torch.ones((1, n, 1), dtype=dtype, device=device)
@@ -346,7 +346,7 @@ def rand_tt_like(generator: torch.Generator, x: TTVector,
 
 
 def zeros_tto(dims, rks=None, *, rmax: int | None = None,
-              dtype=torch.float64, device="cpu") -> TTOperator:
+              dtype=torch.float64, device) -> TTOperator:
     """All-zero TT operator."""
     dims = _as_tuple(dims)
     if rks is None:
@@ -377,8 +377,8 @@ def rand_tto(generator: torch.Generator, dims, rmax: int,
     return TTOperator(cores)
 
 
-def id_tto(d: int, n_dim: int = 2, dtype=torch.float64,
-           device="cpu") -> TTOperator:
+def id_tto(d: int, n_dim: int = 2, dtype=torch.float64, *,
+           device) -> TTOperator:
     """Rank-1 identity MPO."""
     eye = torch.eye(n_dim, dtype=dtype, device=device).reshape(
         1, n_dim, n_dim, 1)

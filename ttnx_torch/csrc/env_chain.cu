@@ -1,6 +1,8 @@
 // Kernels B2 and B6: the ALS environment chains, right (backward) and left
 // (forward), operator and rhs envs together, for one problem (B2) or a
 // batch of B problems with a shared operator (B6).
+// This is their route "staged" (env_chain.env_route): f64 and the shapes
+// csrc/env_chain_site.cu does not take; B8 always runs here.
 //
 // Replaces ttnx/kernels/env_chain.py, right_env_chain_fused (_kernel),
 // left_env_chain_fused (_kernel_left) and env_chain_fused_batched

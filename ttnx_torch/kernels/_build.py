@@ -12,11 +12,11 @@ together, then one link::
 The file name carries a hash of the sources and flags, so an edited kernel
 never loads a stale library. The library is loaded with ``ctypes``; every
 entry point takes ``c_void_p`` for pointers and the stream, ``c_int`` for
-sizes, and returns ``cudaGetLastError()`` after its launches. Each entry
+sizes (``c_longlong`` for an element stride), and returns ``cudaGetLastError()`` after its launches. Each entry
 point exists for the dtype suffixes its signature lists: ``f32`` and
 ``f64`` for the linear-algebra kernels, ``f32`` alone for the
-site-resident routes of B7 and B4/B5 and the cluster routes of B3, B9
-and B10,
+site-resident routes of B7, B4/B5 and B6 and the cluster routes of B2,
+B3, B9 and B10,
 ``bf16`` and ``f32`` for the contraction kernels, ``bf16`` alone for
 their tensor-core routes.
 """
@@ -39,7 +39,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ttnx_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC"]
 
-P, I = ctypes.c_void_p, ctypes.c_int
+P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 REAL = ("f32", "f64")   # the linear-algebra kernels: IEEE f32 and f64
 MM = ("bf16", "f32")    # the contraction kernels: the TPU kernels' types
 # entry point -> (argument types, dtype suffixes); the stream is always the
@@ -73,6 +73,13 @@ _SIGNATURES = {
     # x, A, b, envs, envs_b, scratch, B, d, R, RA, n, Rb, left, raw, stream
     "env_chain_batched": ([P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
                           REAL),
+    # x, A, b, envs, envs_b, b_stride, B, d, R, RA, n, Rb, left, raw,
+    # stream; R = 64 or 32, n = 2, RA = 4, Rb = R
+    "env_chain_resident": ([P, P, P, P, P, LL, I, I, I, I, I, I, I, I, P],
+                           ("f32",)),
+    # x, A, b, envs, envs_b, d, R, RA, n, Rb, left, raw, stream
+    "env_chain_cluster": ([P, P, P, P, P, I, I, I, I, I, I, I, P],
+                          ("f32",)),
     # A, b, x, masks, out, scratch, B, d, R, RA, n, cg_iters, cg_refine,
     # cg_polish, ns1, ns2, stream
     "als_sweep_pair": ([P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, P],
@@ -97,6 +104,8 @@ _QUERIES = {
     # d, R, RA, n -> scratch elements per problem of als_sweep_pair
     "als_sweep_pair_scratch": [I, I, I, I],
     "als_sweep_site_scratch": [I, I, I, I],
+    # R, S -> shared-memory bytes of the env site kernels' block
+    "env_site_smem": [I, I],
 }
 
 _LIB = None

@@ -8,13 +8,25 @@ The right-env build is a backward recurrence of pure contractions::
     Rb_d   = e0 e0^T,  Rb_k[a,u]     = sum x[a,i,p] b[u,i,v] Rb_{k+1}[p,v]
 
 and the left build its forward mirror. :func:`right_env_chain_fused` and
-:func:`left_env_chain_fused` run the whole chain through the Hopper kernels
-(``csrc/env_chain.cu``) for CUDA tensors and through the plain versions for
-CPU tensors. :func:`env_chain_fused_batched` builds either chain for B
-problems in one pass of the same kernels (``csrc/env_chain.cu``), one launch
-per phase and site for the whole batch; :func:`env_chain_batched_plain` is
-its plain version. :func:`env_chain_A_fused` builds the operator envs
-alone (no rhs), with :func:`env_chain_A_plain` as its plain version.
+:func:`left_env_chain_fused` run the whole chain through a Hopper kernel
+for CUDA tensors and through the plain versions for CPU tensors.
+:func:`env_chain_fused_batched` builds either chain for B problems with
+one kernel call; :func:`env_chain_batched_plain` is its plain version.
+:func:`env_chain_A_fused` builds the operator envs alone (no rhs), with
+:func:`env_chain_A_plain` as its plain version.
+
+B2 and B6 pick their kernel by dtype and shape before the launch, never on
+a failure (:func:`env_route`; each wrapper keeps the route of its last
+launch in its ``route`` attribute): ``"resident"`` — B6 in f32 at R = 64
+or 32 with n = 2, RA = 4, Rb = R: one block a problem walks its whole
+chain with the envs in shared memory (``csrc/env_chain_site.cu``);
+``"cluster"`` — one chain (B2, or B6 at B = 1) in f32 at R = 64, 32 or 16
+with the same n, RA, Rb: one thread-block cluster of R / 4 CTAs, each
+owning four columns of the new envs (the same source); ``"staged"`` —
+the multi-launch kernels of ``csrc/env_chain.cu`` (a few launches a site)
+for f64 and every other shape. B8 always takes ``"staged"``.
+:func:`site_layout` mirrors the site kernels' shared-memory layout.
+
 ``x`` must already carry its rank masks. Every plain
 contraction is written as pairwise steps (no three-operand einsum: without
 ``opt_einsum`` torch contracts left to right through huge intermediates),
@@ -31,9 +43,38 @@ from ttnx_torch.kernels.dispatch import counted, require_real, use_kernel
 __all__ = ["right_env_chain_fused", "left_env_chain_fused",
            "right_env_chain_plain", "left_env_chain_plain",
            "env_chain_fused_batched", "env_chain_batched_plain",
-           "env_chain_A_fused", "env_chain_A_plain",
+           "env_chain_A_fused", "env_chain_A_plain", "env_route",
+           "site_layout", "RESIDENT_SLAB", "CLUSTER_RANKS",
            "right_env_update", "right_env_b_update", "left_env_update",
            "left_env_b_update", "boundary_envs"]
+
+SMEM_BLOCK = 232448  # shared memory one block can use on the H100
+RESIDENT_SLAB = {64: 8, 32: 16}  # R -> slab width of route resident
+# R of route cluster, on R / 4 CTAs of four env columns each (16 CTAs at
+# R = 64, a non-portable cluster size)
+CLUSTER_RANKS = (64, 32, 16)
+
+
+def site_layout(R: int, S: int) -> dict:
+    """One block's shared memory in routes resident and cluster at rank R
+    and slab width S, as ``EnvLayout`` in ``csrc/env_site.cuh`` lays it
+    out (n = 2, RA = 4): ``floats`` and ``bytes``."""
+    ldp, ldr, lds, ldq = R + 4, 4 * R + 4, 2 * R + 4, R + 4
+    floats = (2 * R * ldr + 2 * R * ldp + 4 * S * lds + 2 * R * ldq
+              + 2 * 2 * S * ldp + 4 * 2 * 2 * 4)
+    return dict(floats=floats, bytes=4 * floats)
+
+
+def env_route(dtype, B: int, R: int, n: int, RA: int, Rb: int) -> str:
+    """The kernel of B2 (``B == 1``) or B6 for ``B`` problems of rank
+    ``R``: ``"resident"``, ``"cluster"`` or ``"staged"``."""
+    if dtype != torch.float32 or n != 2 or RA != 4 or Rb != R:
+        return "staged"
+    if B == 1 and R in CLUSTER_RANKS:
+        return "cluster"
+    if B > 1 and R in RESIDENT_SLAB:
+        return "resident"
+    return "staged"
 
 
 def right_env_update(xc, Ac, Renv):
@@ -129,13 +170,19 @@ def _launch(name, x, A, b):
     x, A, b = x.contiguous(), A.contiguous(), b.contiguous()
     envs = torch.empty((d + 1, R, RA, R), dtype=x.dtype, device=x.device)
     envs_b = torch.empty((d + 1, R, Rb), dtype=x.dtype, device=x.device)
+    left = name.startswith("left")
+    route = env_route(x.dtype, 1, R, n, RA, Rb)
+    if route == "cluster":
+        _build.call("env_chain_cluster", x.dtype, x.data_ptr(),
+                    A.data_ptr(), b.data_ptr(), envs.data_ptr(),
+                    envs_b.data_ptr(), d, R, RA, n, Rb, int(left), 0)
+        return envs, envs_b, route
     scratch = torch.empty(2 * n * RA * R * R + n * R * Rb, dtype=x.dtype,
                           device=x.device)
-    entry = "env_chain_left" if name.startswith("left") else "env_chain_right"
-    _build.call(entry, x.dtype, x.data_ptr(), A.data_ptr(), b.data_ptr(),
-                envs.data_ptr(), envs_b.data_ptr(), scratch.data_ptr(),
-                d, R, RA, n, Rb)
-    return envs, envs_b
+    _build.call("env_chain_left" if left else "env_chain_right", x.dtype,
+                x.data_ptr(), A.data_ptr(), b.data_ptr(), envs.data_ptr(),
+                envs_b.data_ptr(), scratch.data_ptr(), d, R, RA, n, Rb)
+    return envs, envs_b, route
 
 
 @counted
@@ -145,9 +192,10 @@ def right_env_chain_fused(x, A, b):
     (d+1, R, RA, R), envs_b (d+1, R, Rb))``."""
     if not use_kernel(x, A, b):
         return right_env_chain_plain(x, A, b)
-    out = _launch("right_env_chain_fused", x, A, b)
+    *out, right_env_chain_fused.route = _launch("right_env_chain_fused", x,
+                                                A, b)
     right_env_chain_fused.launches += 1
-    return out
+    return tuple(out)
 
 
 @counted
@@ -156,9 +204,10 @@ def left_env_chain_fused(x, A, b):
     :func:`right_env_chain_fused`."""
     if not use_kernel(x, A, b):
         return left_env_chain_plain(x, A, b)
-    out = _launch("left_env_chain_fused", x, A, b)
+    *out, left_env_chain_fused.route = _launch("left_env_chain_fused", x, A,
+                                               b)
     left_env_chain_fused.launches += 1
-    return out
+    return tuple(out)
 
 
 @counted
@@ -178,17 +227,36 @@ def env_chain_fused_batched(x, A, b, *, left: bool = False,
         raise ValueError(f"env_chain_fused_batched: shapes x{tuple(x.shape)}"
                          f" A{tuple(A.shape)} b{tuple(b.shape)} are not "
                          f"(B,d,R,n,R), (d,RA,n,n,RA), (B,d,Rb,n,Rb)")
-    x, A, b = x.contiguous(), A.contiguous(), b.contiguous()
+    x, A = x.contiguous(), A.contiguous()
     env_shape = (RA, R, R) if raw else (R, RA, R)
     envs = torch.empty((B, d + 1) + env_shape, dtype=x.dtype,
                        device=x.device)
     envs_b = torch.empty((B, d + 1, R, Rb), dtype=x.dtype, device=x.device)
-    scratch = torch.empty(B * (2 * n * RA * R * R + n * R * Rb),
-                          dtype=x.dtype, device=x.device)
-    _build.call("env_chain_batched", x.dtype, x.data_ptr(), A.data_ptr(),
-                b.data_ptr(), envs.data_ptr(), envs_b.data_ptr(),
-                scratch.data_ptr(), B, d, R, RA, n, Rb, int(left), int(raw))
+    route = env_route(x.dtype, B, R, n, RA, Rb)
+    if route == "resident":
+        # one rhs broadcast over the batch is read in place (stride 0)
+        shared = b.stride(0) == 0 and b[0].is_contiguous()
+        b = b if shared else b.contiguous()
+        _build.call("env_chain_resident", x.dtype, x.data_ptr(),
+                    A.data_ptr(), b.data_ptr(), envs.data_ptr(),
+                    envs_b.data_ptr(), 0 if shared else b[0].numel(), B, d,
+                    R, RA, n, Rb, int(left), int(raw))
+    elif route == "cluster":
+        b = b.contiguous()
+        _build.call("env_chain_cluster", x.dtype, x.data_ptr(),
+                    A.data_ptr(), b.data_ptr(), envs.data_ptr(),
+                    envs_b.data_ptr(), d, R, RA, n, Rb, int(left),
+                    int(raw))
+    else:
+        b = b.contiguous()
+        scratch = torch.empty(B * (2 * n * RA * R * R + n * R * Rb),
+                              dtype=x.dtype, device=x.device)
+        _build.call("env_chain_batched", x.dtype, x.data_ptr(),
+                    A.data_ptr(), b.data_ptr(), envs.data_ptr(),
+                    envs_b.data_ptr(), scratch.data_ptr(), B, d, R, RA, n,
+                    Rb, int(left), int(raw))
     env_chain_fused_batched.launches += 1
+    env_chain_fused_batched.route = route
     return envs, envs_b
 
 
@@ -226,4 +294,11 @@ def env_chain_A_fused(x, A, *, left: bool = False):
                 x.data_ptr(), A.data_ptr(), envs.data_ptr(),
                 scratch.data_ptr(), d, R, RA, n)
     env_chain_A_fused.launches += 1
+    env_chain_A_fused.route = "staged"
     return envs
+
+
+right_env_chain_fused.route = None
+left_env_chain_fused.route = None
+env_chain_fused_batched.route = None
+env_chain_A_fused.route = None

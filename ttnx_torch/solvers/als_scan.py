@@ -54,7 +54,7 @@ SOLVERS = ("lu", "cg", "bicgstab", "cg_fused", "bicgstab_fused")
 # ---------------------------------------------------------------------------
 
 
-def rank_masks(rks, R: int, dtype=torch.float64, device="cpu"):
+def rank_masks(rks, R: int, dtype=torch.float64, *, device):
     """0/1 masks ``(d+1, R)`` for a static rank vector."""
     rks = list(rks)
     m = np.zeros((len(rks), R))

@@ -20,20 +20,20 @@ def _tensor(a, device, dtype=None):
     return torch.as_tensor(np.ascontiguousarray(a), dtype=dtype, device=device)
 
 
-def ttvector_from_numpy(cores, ot=None, *, device="cpu",
+def ttvector_from_numpy(cores, ot=None, *, device,
                         dtype=None) -> TTVector:
     """TTVector from a sequence of ``(r_left, n, r_right)`` arrays."""
     return TTVector([_tensor(c, device, dtype) for c in cores], ot)
 
 
-def ttoperator_from_numpy(cores, ot=None, *, device="cpu",
+def ttoperator_from_numpy(cores, ot=None, *, device,
                           dtype=None) -> TTOperator:
     """TTOperator from a sequence of ``(r_left, n_out, n_in, r_right)``
     arrays."""
     return TTOperator([_tensor(c, device, dtype) for c in cores], ot)
 
 
-def stack_from_numpy(arr, *, device="cpu", dtype=None) -> torch.Tensor:
+def stack_from_numpy(arr, *, device, dtype=None) -> torch.Tensor:
     """Any array (a padded stack, masks, an env) as a tensor on ``device``."""
     return _tensor(arr, device, dtype)
 
