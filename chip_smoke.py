@@ -12,10 +12,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    float32 and float64; max relative error (<= 1e-4 f32, <= 1e-10 f64)
    and median time of kernel and plain version. B3 also on a seeded SPD
    K at M = 509 (neither a multiple of 4 nor of 8), f32 and f64, and twice
-   on the same inputs at r16 in f32 (bit-identical), as B2 is at every
-   rank in f32. Each B2, B3 and B4 line names the kernel route the wrapper
-   chose (cg_route: "cluster" for f32 at M <= 672, else "l2"; env_route:
-   B2 "cluster" for f32 at ranks 16, 32 and 64, else "staged").
+   on the same inputs at r16 in f32 (bit-identical), as B1 and B2 are at
+   every rank in f32. Each B1, B2, B3 and B4 line names the kernel route
+   the wrapper chose (cg_route: "cluster" for f32 at M <= 672, else "l2";
+   env_route: B2 "cluster" for f32 at ranks 16, 32 and 64, else "staged";
+   gram_route: B1 "grid" for f32 at RB = 64, 128 and 256, else
+   "staged").
 3b. Batched kernels: B5-B7 against their plain versions at R = 64 and
    32, float32 and float64, on B = 8 distinct problems: B5 and B6 on the
    inputs one als_sweeps_b call gives them (b[i] = (1 + 0.2 i) u_s, x[i] =
@@ -39,8 +41,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    ms/step and GFLOP/s through the kernels and through the plain versions,
    agreement of the two 8-step states (rel <= 1e-4), and the kernel launch
    counts per step (B1 = 1, B2 = 1 right + 1 left, B3/B4 = 22/0 at rank 16,
-   0/22 at ranks 32 and 64), every B2 and B3 launch on route "cluster" and
-   B4 on route "resident".
+   0/22 at ranks 32 and 64), every B2 and B3 launch on route "cluster",
+   B4 on route "resident" and B1 on route "grid".
 5. Batched path: 512 rank-64 d=12 implicit heat solves (f32, no TF32)
    through both routes of the bench ladder, explicit_kernel (als_sweeps_b,
    cg_fused, 16 warm CG iterations: B6 2 launches on route "resident",
@@ -56,15 +58,24 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    interleaved: new route, "staged", "staged", new route; then the device
    kernel time a call (torch.profiler) of the CN r16 and r64 steps and of
    the explicit batched call with the B2/B6 route forced either way.
+3f. B1 and B8 by route: B1 on the CN step's stacks at RB = 64, 128 and
+   256 and B8 on the third dmrg_eig_sweep's chains at (d, R) = (10, 16)
+   and (12, 64), right and left, timed (CUDA events) interleaved: new route
+   (B1 "grid", B8 "cluster"), "staged", "staged", new route; then the
+   device kernel time a call (torch.profiler) of a CN r64 step and of a
+   DMRG d = 12 sweep with the route forced either way.
 3c. DMRG kernels: B8 (operator-only env chain, right and left) on the
-   inputs one dmrg_eig_sweep gives it at R = 16 (d = 10) and R = 64
-   (d = 12), and B9 (fused Lanczos, M = 1024, iters 8 and 24) on a seeded
+   inputs the third of three dmrg_eig_sweeps gives it at R = 16 (d = 10)
+   and R = 64 (d = 12), where every CTA's slab of env columns is nonzero
+   (a gate), and B9 (fused Lanczos, M = 1024, iters 8 and 24) on a seeded
    well-conditioned symmetric K (Q, alphas and betas) and on the K the
-   d = 10 sweep assembles (gauge-free: the smallest Ritz value and its
+   first d = 10 sweep assembles (gauge-free: the smallest Ritz value and its
    vector up to sign); float32 (<= 1e-4) and float64 (<= 1e-10). Each B9
    line names the kernel route (lanczos_route: "cluster" for f32 at M <=
    1024, else "l2"); on the sweep's K at iters 8 in f32 two launches must
-   give the same bits.
+   give the same bits, as they must for every f32 B8 input. Each B8 line
+   names its route (env_A_route: "cluster" for f32 at R = 64, 32 and 16
+   with RA = 5, else "staged").
 6. DMRG path: the open XXX chain, f32, TF32 off, split='gram', tol =
    degen_tol = 1e-8, 8 chained dmrg_eig_sweeps after a warm-up sweep
    (median of 3 chains): d = 10, rmax = 16 through eig_solver='lanczos'
@@ -78,7 +89,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    batched sweeps run B8): tdvp1_step (16 steps) and tdvp2_step (8 steps)
    of the d = 10 heat generator on the sine, f32, against the analytic
    decay (rel <= 1e-3), ms/step; batched_dmrg_eig_sweeps over 4 XXZ
-   chains with per-problem fields equal to the 4 single runs exactly.
+   chains with per-problem fields equal to the 4 single runs exactly,
+   every B8 launch of the batch on route "cluster".
 3d. Kernels B10-B13 against their plain versions: B10 (BiCGStab, 32
    iterations) on the K the convection step assembles at a middle site
    (M = 512; see CONV_SITE) and on a seeded diagonally dominant K at M =
@@ -101,8 +113,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    warm-up), through the kernels and the plain versions: the 8-step state
    against the sparse-LU oracle (rel <= 1e-3), the last step's residual
    with the exact operators (<= 1e-2), kernels against plain (rel <=
-   1e-4), launches per step (B10 22 on route "cluster", B1 1, B2 1 right
-   + 1 left, B3/B4 0).
+   1e-4), launches per step (B10 22 on route "cluster", B1 1 on route
+   "staged" at RB = 96, B2 1 right + 1 left, B3/B4 0).
 9. Contraction path at the bench's shapes, bf16: the two-site merge of
    the chain's cores (B13), merge_resplit_chain at 2048 iterations (B11)
    and matmul_chain at 1024 (B12), each once for its launch count, then
@@ -114,7 +126,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 
 The last two lines are a JSON summary of the kernels (13 rows: errors,
 times, bound, library time; ``kernel_route`` the wrapper's route where it
-has more than one; B6 at B = 512, right) and the device line ``{"ok":
+has more than one; B6 at B = 512, right; B8 at R = 64, right) and the
+device line ``{"ok":
 true, "device": {...}}``. Without a CUDA device it exits non-zero and prints no result.
 """
 
@@ -144,6 +157,7 @@ BATCHED_RANKS = (64, 32)
 # DMRG (bench_dmrg_sweep, bench.py:323-374) and its exact-rank wide twin
 DMRG_CONFIGS = ((10, 16), (12, 64))  # (d, rmax)
 DMRG_ITERS, DMRG_SWEEPS = 8, 8
+ENV_A_SWEEPS = 3  # B8 is held on the chains of the third sweep
 LANCZOS_M = 1024
 # TDVP (bench_tdvp_step / bench_tdvp2_step, bench.py:376-503)
 TDVP_D, TDVP_RMAX, TDVP_H = 10, 8, 1e-5
@@ -212,7 +226,8 @@ KERNELS = {
 CN_KERNELS = ("gram_chain_fused", "right_env_chain_fused",
               "left_env_chain_fused", "cg_solve_fused", "cg_matfree_fused")
 B2 = ("right_env_chain_fused", "left_env_chain_fused")
-B2_B3 = B2 + ("cg_solve_fused",)  # held twice for bit-identity in f32
+# held twice on the CN step's inputs for bit-identity in f32
+HELD_TWICE = B2 + ("cg_solve_fused", "gram_chain_fused")
 
 
 def log(msg: str) -> None:
@@ -553,7 +568,7 @@ def phase_kernels(device):
             inputs = capture_inputs(rmax, device, dtype)
             for name, (args, kwargs) in inputs.items():
                 rows.append(hold(name, rmax, dtype, args, kwargs))
-                if name in B2_B3 and dtype == torch.float32:
+                if name in HELD_TWICE and dtype == torch.float32:
                     deterministic(name, args, kwargs)
         K, rhs, x0 = spd_problem(509, dtype, device)
         rows.append(hold("cg_solve_fused", 16, dtype, (K, rhs),
@@ -692,7 +707,8 @@ def phase_main_path(device):
     for rmax in RANKS:
         step_fn, us, unpack = setup(rmax, device)
         before = launch_counts()
-        with route_log("cg_solve_fused", *B2) as routes:
+        with route_log("cg_solve_fused", "gram_chain_fused",
+                       *B2) as routes:
             one = step_fn(us)
         torch.cuda.synchronize()
         per_step = {k: v - before[k] for k, v in launch_counts().items()}
@@ -716,6 +732,9 @@ def phase_main_path(device):
         if b2 != ["cluster"] * 2:
             raise RuntimeError(f"r{rmax}: B2 took routes {b2}, not all "
                                f"cluster")
+        b1 = routes["gram_chain_fused"]
+        if b1 != ["grid"]:
+            raise RuntimeError(f"r{rmax}: B1 took routes {b1}, not grid")
         if one.shape != us.shape or not bool(torch.isfinite(one).all()):
             raise RuntimeError(f"r{rmax}: step output is not a finite "
                                f"{tuple(us.shape)} stack")
@@ -733,7 +752,7 @@ def phase_main_path(device):
             f"GFLOP/s) | plain {plain_ms:.3f} ms/step | traj rel "
             f"{rel:.3e} (<= 1e-3) residual {res:.3e} (<= 1e-2) | kernel vs "
             f"plain 8-step rel {agree:.3e} (<= 1e-4) | launches/step "
-            f"{per_step} | B2 routes {set(b2)}"
+            f"{per_step} | B1 route {b1[0]} | B2 routes {set(b2)}"
             f"{f' | B4 route {b4}' if b4 else ''}"
             f"{f' | B3 routes {set(b3)}' if b3 else ''}")
         if not (np.isfinite(rel) and rel <= 1e-3 and res <= 1e-2
@@ -892,6 +911,26 @@ def spread_K(rng, M, dtype, device):
                             device=device))
 
 
+def env_A_inputs(seen):
+    """The last B8 call of each direction (right, left) in ``seen``, the
+    calls of ENV_A_SWEEPS sweeps: the last sweep's chains run on a state
+    grown from the rank-4 start until its envs fill every CTA's slab of
+    columns (the first sweep's right chain at d = 12, R = 64 fills one
+    slab of 16, the second's nine). Raises if a slab stays zero along the
+    chain."""
+    last = {}
+    for args, kwargs in seen["env_chain_A_fused"]:
+        last[bool(kwargs.get("left"))] = (args, kwargs)
+    plain = wrappers()["env_chain_A_fused"][1]
+    for args, kwargs in last.values():
+        envs = plain(*args, **kwargs)
+        slabs = envs.abs().amax(dim=(0, 1, 2)).view(-1, 4).amax(dim=1)
+        if not bool((slabs > 0).all()):
+            raise RuntimeError(f"B8 input leaves {int((slabs == 0).sum())} "
+                               f"of {slabs.numel()} env column slabs zero")
+    return [last[False], last[True]]
+
+
 def phase_dmrg_kernels(device):
     """3c: B8 and B9 against their plain versions."""
     from ttnx_torch.entry import dmrg_problem
@@ -903,16 +942,20 @@ def phase_dmrg_kernels(device):
             p = dmrg_problem(device, d=d, rmax=rmax, dtype=dtype)
             fused = can_fuse_lanczos(dtype, 4 * rmax * rmax)
             solver = "lanczos_fused" if fused else "lanczos"
-            seen = record_calls(lambda: dmrg_sweeps(p, 1, solver))
-            for (args, kwargs) in seen["env_chain_A_fused"]:
+            seen = record_calls(lambda: dmrg_sweeps(p, ENV_A_SWEEPS,
+                                                    solver))
+            for (args, kwargs) in env_A_inputs(seen):
                 tag = " left" if kwargs.get("left") else " right"
                 rows.append(hold("env_chain_A_fused", rmax, dtype, args,
                                  kwargs, tag=tag))
+                if dtype == torch.float32:
+                    deterministic("env_chain_A_fused", args, kwargs)
             if not fused:
                 continue
-            calls = seen["lanczos_fused"]
-            if len(calls) != 2 * (d - 1):
-                raise RuntimeError(f"the sweep made {len(calls)} B9 calls")
+            calls = seen["lanczos_fused"]  # the first sweep's from 0
+            if len(calls) != ENV_A_SWEEPS * 2 * (d - 1):
+                raise RuntimeError(f"{ENV_A_SWEEPS} sweeps made "
+                                   f"{len(calls)} B9 calls")
             (K, v0), _ = calls[MIDDLE_SITE]
             for iters in (8, 24):
                 rows.append(hold("lanczos_fused", rmax, dtype, (K, v0),
@@ -967,14 +1010,18 @@ def phase_dmrg_path(device):
         for solver in (("lanczos", "lanczos_fused") if rmax == 16
                        else ("lanczos",)):
             reset_launch_counts()
-            with route_log("lanczos_fused") as routes:
+            with route_log("lanczos_fused", "env_chain_A_fused") as routes:
                 ms, x, m, E = timed_sweeps(p, solver)
             counts = launch_counts()
+            for label, name in (("B9", "lanczos_fused"),
+                                ("B8", "env_chain_A_fused")):
+                taken = routes[name]
+                if taken != ["cluster"] * counts[name]:
+                    raise RuntimeError(f"dmrg d={d} r{rmax} {solver}: "
+                                       f"{label} took routes "
+                                       f"{sorted(set(taken))}, not all "
+                                       f"cluster")
             b9 = routes["lanczos_fused"]
-            if b9 != ["cluster"] * counts["lanczos_fused"]:
-                raise RuntimeError(f"dmrg d={d} r{rmax} {solver}: B9 took "
-                                   f"routes {sorted(set(b9))}, not all "
-                                   f"cluster")
             sweeps = 1 + 3 * DMRG_SWEEPS
             want = dict.fromkeys(counts, 0)
             want["env_chain_A_fused"] = 2 * sweeps
@@ -1001,6 +1048,7 @@ def phase_dmrg_path(device):
                 f"ranks {[int(v) for v in m.sum(dim=1).tolist()]} | kernel "
                 f"vs plain E rel {agree:.3e} (<= 1e-5) overlap "
                 f"{overlap:.9f} (>= 1 - 1e-4) | launches/sweep {per_sweep}"
+                f" | B8 routes {set(routes['env_chain_A_fused'])}"
                 f"{f' | B9 routes {set(b9)}' if b9 else ''}")
             if not (finite and rel <= 1e-5 and agree <= 1e-5
                     and overlap >= 1 - 1e-4):
@@ -1066,14 +1114,19 @@ def phase_tdvp_path(device):
     tol = starts[0]["tol"]
     reset_launch_counts()
     t0 = time.perf_counter()
-    _, _, Eb = batched_dmrg_eig_sweeps(A6, xb, mb, tol, tol,
-                                       n_sweeps=2, lanczos_iters=DMRG_ITERS,
-                                       split="gram")
-    torch.cuda.synchronize()
+    with route_log("env_chain_A_fused") as routes:
+        _, _, Eb = batched_dmrg_eig_sweeps(A6, xb, mb, tol, tol, n_sweeps=2,
+                                           lanczos_iters=DMRG_ITERS,
+                                           split="gram")
+        torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     counts = launch_counts()
     if counts["env_chain_A_fused"] != 2 * 2 * B:
         raise RuntimeError(f"batched dmrg: launches {counts}")
+    b8 = routes["env_chain_A_fused"]
+    if b8 != ["cluster"] * len(b8):
+        raise RuntimeError(f"batched dmrg: B8 took routes {sorted(set(b8))},"
+                           f" not all cluster")
     singles = []
     for i in range(B):
         x, m, Es = xb[i], mb[i], []
@@ -1086,7 +1139,8 @@ def phase_tdvp_path(device):
     log(f"batched_dmrg_eig_sweeps XXZ d={d} r{rmax} B={B} fields {fields} "
         f"f32 2 sweeps: {sec * 1e3:.1f} ms | last energies "
         f"{[round(float(e), 6) for e in Eb[:, -1]]} | equal to the single "
-        f"runs: {same} | B8 launches {counts['env_chain_A_fused']}")
+        f"runs: {same} | B8 launches {counts['env_chain_A_fused']} on "
+        f"route {set(b8)}")
     if not (same and bool(torch.isfinite(Eb).all())):
         raise RuntimeError("batched dmrg differs from the single runs")
     return counts
@@ -1340,6 +1394,71 @@ def phase_env_routes(device):
                 f"{dev / wall:.3f}")
 
 
+@contextlib.contextmanager
+def forced_gram_envA_route(route):
+    """Inside the block every B1 and B8 launch takes route ``staged``, or
+    the route its wrapper chooses (``route == "new"``)."""
+    from ttnx_torch.kernels import env_chain, gram
+
+    saved = gram.gram_route, env_chain.env_A_route
+    if route == "staged":
+        gram.gram_route = lambda *shape: "staged"
+        env_chain.env_A_route = lambda *shape: "staged"
+    try:
+        yield
+    finally:
+        gram.gram_route, env_chain.env_A_route = saved
+
+
+def phase_gram_envA_routes(device):
+    """3f: B1 (RB = 64, 128, 256) and B8 ((d, R) = (10, 16), (12, 64),
+    right and left) timed by route, interleaved (new, staged, staged, new),
+    then the device time of a CN r64 step and of a DMRG d = 12 sweep with
+    the B1/B8 route forced each way (torch.profiler)."""
+    from ttnx_torch.entry import dmrg_problem
+
+    cases = []
+    for rmax in RANKS:
+        args, kwargs = capture_inputs(rmax, device,
+                                      torch.float32)["gram_chain_fused"]
+        cases.append((f"B1 r{rmax} RB={args[0].shape[1]}",
+                      "gram_chain_fused", args, kwargs))
+    for d, rmax in DMRG_CONFIGS:
+        p = dmrg_problem(device, d=d, rmax=rmax)
+        seen = record_calls(lambda: dmrg_sweeps(p, ENV_A_SWEEPS,
+                                                "lanczos"))
+        for args, kwargs in env_A_inputs(seen):
+            side = "left" if kwargs.get("left") else "right"
+            cases.append((f"B8 d={d} r{rmax} {side}", "env_chain_A_fused",
+                          args, kwargs))
+    for label, name, args, kwargs in cases:
+        kernel = wrappers()[name][0]
+        times, taken = [], []
+        for route in ("new", "staged", "staged", "new"):
+            with forced_gram_envA_route(route):
+                times.append(cuda_ms(lambda: kernel(*args, **kwargs), 10, 3))
+                taken.append(kernel.route)
+        log(f"interleaved {label} ({', '.join(taken)}): "
+            f"{', '.join(f'{t:.4f}' for t in times)} ms")
+        if taken[0] == "staged" or min(times[0], times[3]) >= min(times[1:3]):
+            raise RuntimeError(f"{label}: route {taken[0]} is not faster "
+                               f"than staged")
+    step_fn, us, _ = setup(64, device)
+    p = dmrg_problem(device, d=12, rmax=64)
+    runs = ((f"cn_step d={D} r64", lambda: step_fn(us), N_STEPS,
+             "ttnx_gram"),
+            ("dmrg d=12 r64 sweep", lambda: dmrg_sweeps(p, 1, "lanczos"), 2,
+             "ttnx_env"))
+    for label, run, n, part in runs:
+        for route in ("new", "staged"):
+            with forced_gram_envA_route(route):
+                wall, dev, kernels, some = device_ms(run, n, part)
+            log(f"profile {label}, B1/B8 route {route}: wall {wall:.3f} ms, "
+                f"device kernels {dev:.3f} ms a call ({kernels:.0f} "
+                f"kernels; {'B1' if part == 'ttnx_gram' else 'B8'} "
+                f"{some:.3f} ms), busy share {dev / wall:.3f}")
+
+
 def phase_convection_path(device):
     """8: the convection-diffusion CN step; returns the launch counts."""
     from ttnx_torch.core.algebra import add_op
@@ -1352,7 +1471,8 @@ def phase_convection_path(device):
     hg = 1.0 / (2 ** D + 1)
     step_fn, us, unpack, u0 = conv_setup(device)
     reset_launch_counts()
-    one = step_fn(us)
+    with route_log("gram_chain_fused") as routes:
+        one = step_fn(us)
     torch.cuda.synchronize()
     per_step = launch_counts()
     want = dict.fromkeys(per_step, 0)
@@ -1365,6 +1485,9 @@ def phase_convection_path(device):
     b10 = wrappers()["bicgstab_solve_fused"][0].route
     if b10 != "cluster":
         raise RuntimeError(f"convection: B10 took route {b10}, not cluster")
+    b1 = routes["gram_chain_fused"]
+    if b1 != ["staged"]:  # RB = 96: outside route grid's shapes
+        raise RuntimeError(f"convection: B1 took routes {b1}, not staged")
     if one.shape != us.shape or not bool(torch.isfinite(one).all()):
         raise RuntimeError("convection: step output is not a finite stack")
     ms, v7, v8 = timed_chain(step_fn, us)
@@ -1391,7 +1514,7 @@ def phase_convection_path(device):
         f"(<= 1e-3; the state moved {moved:.3e}) residual {res:.3e} (<= "
         f"1e-2) | kernel vs plain 8-step rel {agree:.3e} (<= 1e-4) | "
         f"launches/step { {k: v for k, v in per_step.items() if v} } | "
-        f"B10 route {b10}")
+        f"B10 route {b10} | B1 route {b1[0]}")
     if not (np.isfinite(rel) and rel <= 1e-3 and res <= 1e-2
             and agree <= 1e-4):
         raise RuntimeError(f"convection failed its gates: rel={rel:.3e} "
@@ -1530,8 +1653,11 @@ def summarize(rows, path_rows, counts):
         if r.get("route") == "resident" and label in ("B4", "B5"):
             source = "ttnx_torch/csrc/local_cg_site.cu"
         if r.get("route") in ("resident", "cluster") and label in ("B2",
-                                                                   "B6"):
+                                                                   "B6",
+                                                                   "B8"):
             source = "ttnx_torch/csrc/env_chain_site.cu"
+        if r.get("route") == "grid":
+            source = "ttnx_torch/csrc/gram_chain_grid.cu"
         summary.append({"name": f"{label} {name}", "route": "cuda",
                         "kernel_route": r.get("route"),
                         "source": source, "replaces": replaces,
@@ -1541,6 +1667,14 @@ def summarize(rows, path_rows, counts):
                         "bound_by": by,
                         "library_ms": r.get("library_ms")})
     return summary
+
+
+def timed(label, phase, *args):
+    """``phase(*args)``, logging its wall time."""
+    t0 = time.perf_counter()
+    out = phase(*args)
+    log(f"phase {label}: {time.perf_counter() - t0:.1f} s wall")
+    return out
 
 
 def main() -> int:
@@ -1554,16 +1688,22 @@ def main() -> int:
     # full-f32 products in the plain versions the kernels are held against
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    start = time.perf_counter()
     phase_device()
-    phase_build()
-    rows = (phase_kernels(device) + phase_batched_kernels(device)
-            + phase_dmrg_kernels(device) + phase_new_kernels(device))
-    counts = phase_main_path(device)
-    later = list(phase_batched_path(device).values())
-    phase_env_routes(device)
-    later += [phase_dmrg_path(device), phase_tdvp_path(device),
-              phase_convection_path(device)]
-    contraction_counts, path_rows = phase_contraction_path(device)
+    timed("2", phase_build)
+    rows = (timed("3", phase_kernels, device)
+            + timed("3b", phase_batched_kernels, device)
+            + timed("3c", phase_dmrg_kernels, device)
+            + timed("3d", phase_new_kernels, device))
+    counts = timed("4", phase_main_path, device)
+    later = list(timed("5", phase_batched_path, device).values())
+    timed("3e", phase_env_routes, device)
+    timed("3f", phase_gram_envA_routes, device)
+    later += [timed("6", phase_dmrg_path, device),
+              timed("7", phase_tdvp_path, device),
+              timed("8", phase_convection_path, device)]
+    contraction_counts, path_rows = timed("9", phase_contraction_path,
+                                          device)
     later.append(contraction_counts)
     for path_counts in later:
         for name, n in path_counts.items():
@@ -1572,7 +1712,9 @@ def main() -> int:
     missing = [k for k in KERNELS if counts.get(k, 0) == 0]
     if missing:
         raise RuntimeError(f"the main paths launched no {missing}")
-    print(json.dumps({"kernels": summarize(rows, path_rows, counts)}))
+    summary = summarize(rows, path_rows, counts)
+    log(f"chip_smoke: {time.perf_counter() - start:.1f} s wall in all")
+    print(json.dumps({"kernels": summary}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -232,7 +232,7 @@ def layouts():
     from ttnx_torch.kernels.env_chain import site_layout
 
     for R, S in ((64, 8), (64, 4), (32, 16), (32, 4), (16, 4)):
-        got = _build._LIB.ttnx_env_site_smem(R, S)
+        got = _build._LIB.ttnx_env_site_smem(R, S, 4, 1)
         want = site_layout(R, S)["bytes"]
         print(f"layout R={R} S={S}: {got} B (Python twin {want})",
               flush=True)
@@ -346,11 +346,17 @@ def variants(b2, b6, sources, everywhere=False):
                 print(f"variant {label} {which}: {ms:.4f} ms", flush=True)
         _build._LIB = base
         for label, name, args, kwargs, _ in picked:
+            kernel = chip_smoke.wrappers()[name][0]
+            now = kernel(*args, **kwargs)
             _build._LIB = lib
             _, err, same = held(name, args, kwargs, None)
+            other = kernel(*args, **kwargs)
             _build._LIB = base
+            torch.cuda.synchronize()
+            as_now = all(torch.equal(a, b) for a, b in zip(now, other))
             print(f"variant {tag} check {label}: max rel err {err:.3e}, "
-                  f"bit-identical {same}", flush=True)
+                  f"bit-identical {same}, the same bits as now {as_now}",
+                  flush=True)
 
 
 def main() -> int:

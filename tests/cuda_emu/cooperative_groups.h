@@ -1,6 +1,8 @@
-// A CPU stand-in for the cluster part of cooperative_groups.h, on the
-// emulated clusters of emu_block.h: a block's rank, the address of a
-// shared-memory location in a partner block, and the cluster barrier.
+// A CPU stand-in for the cluster and grid parts of cooperative_groups.h,
+// on the emulated clusters of emu_block.h: a block's rank, the address of
+// a shared-memory location in a partner block, the cluster barrier, and
+// the grid barrier of a cooperative launch (whose blocks run as one
+// emulated cluster).
 #pragma once
 #include "cuda_runtime.h"
 
@@ -20,4 +22,8 @@ struct cluster_group {
   }
 };
 inline cluster_group this_cluster() { return {}; }
+struct grid_group {
+  void sync() const { emu_cluster_sync(); }
+};
+inline grid_group this_grid() { return {}; }
 }  // namespace cooperative_groups

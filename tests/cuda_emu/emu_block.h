@@ -6,8 +6,9 @@
 // emu_run_block_smem one block with dynamic shared memory; a cluster
 // launch (cudaLaunchKernelEx) runs its blocks at once, each with its own
 // dynamic shared memory, one cluster-wide barrier for all their threads,
-// and partner addresses mapped block to block. Included by the main
-// program of each emulator executable.
+// and partner addresses mapped block to block; a cooperative launch
+// (cudaLaunchKernelEx too) is such a cluster, its grid barrier the
+// cluster's. Included by the main program of each emulator executable.
 #pragma once
 #include <barrier>
 #include <cstdint>
@@ -40,6 +41,7 @@ struct EmuCluster {
 thread_local emu_dim3 threadIdx;
 thread_local emu_dim3 blockIdx;
 thread_local emu_dim3 blockDim;
+thread_local emu_dim3 gridDim;
 static thread_local EmuBlock* emu_self;
 static thread_local EmuCluster* emu_cluster;
 
@@ -76,6 +78,7 @@ static void emu_thread(EmuBlock* self, EmuCluster* cluster, int block,
   threadIdx = {(unsigned)t, 0, 0};
   blockIdx = {(unsigned)block, 0, 0};
   blockDim = {(unsigned)threads, 1, 1};
+  gridDim = {cluster ? (unsigned)cluster->blocks.size() : 1u, 1, 1};
   emu_self = self;
   emu_cluster = cluster;
   f();

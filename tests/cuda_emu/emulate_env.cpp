@@ -1,8 +1,9 @@
-// Runs both routes of kernels B6 and B2 (ttnx_torch/csrc/env_chain_site.cu,
-// on env_site.cuh) on the CPU: route resident as one emulated block of 512
-// threads a problem, the problems one after another; route cluster through
-// its host function, which launches one cluster of C emulated blocks of
-// 512 threads, all running at once.
+// Runs every route of kernels B6, B2 and B8 (ttnx_torch/csrc/
+// env_chain_site.cu, on env_site.cuh) on the CPU: route resident as one
+// emulated block of 512 threads a problem, the problems one after another;
+// the cluster routes (B2's, and B8's with no rhs) through their host
+// functions, which launch one cluster of C emulated blocks of 512 threads,
+// all running at once.
 //
 //   g++ -std=c++20 -O1 -I tests/cuda_emu -I ttnx_torch/csrc \
 //       -DENV_SOURCE=<env.cpp> tests/cuda_emu/emulate_env.cpp \
@@ -10,13 +11,16 @@
 //   emulate_env DIR resident B d R left raw     (R = 32 or 64)
 //   emulate_env DIR cluster d R left raw        (R = 16, 32 or 64: R / 4
 //                                                blocks)
+//   emulate_env DIR clusterA d R left           (B8: RA = 5, no rhs)
 //
 // ENV_SOURCE is env_chain_site.cu with its launch expression removed and
 // its dynamic shared-memory array mapped to the emulated block's (the
 // test does both). DIR holds x.bin (B, d, R, 2, R), A.bin (d, 4, 2, 2, 4)
 // and b.bin (B, d, R, 2, R), float32 (B = 1 for the cluster); envs and
-// envs_b are written to DIR/envs.bin and DIR/envs_b.bin. The shared-memory
-// bytes of every instantiated layout are printed on standard output.
+// envs_b are written to DIR/envs.bin and DIR/envs_b.bin. B8 reads x.bin
+// (d, R, 2, R) and A.bin (d, 5, 2, 2, 5) and writes envs.bin (d+1, R, 5,
+// R). The shared-memory bytes of every instantiated layout are printed on
+// standard output.
 #include <cstdio>
 #include <cstdlib>
 #include <string>
@@ -55,12 +59,35 @@ void resident(const float* x, const float* A, const float* b, float* envs,
     });
 }
 
+static int operator_only(const std::string& dir, int d, int R, int left) {
+  const size_t V = (size_t)R * 2 * R, E = (size_t)R * 5 * R;
+  const auto x = read(dir + "/x.bin", d * V);
+  const auto A = read(dir + "/A.bin", (size_t)d * 100);
+  std::vector<float> envs((d + 1) * E, NAN);
+  const int err = ttnx_env_chain_A_cluster_f32(x.data(), A.data(),
+                                               envs.data(), d, R, 5, 2, left,
+                                               nullptr);
+  if (err) {
+    fprintf(stderr, "env chain clusterA: error %d\n", err);
+    return 3;
+  }
+  write(dir + "/envs.bin", envs);
+  return 0;
+}
+
 int main(int argc, char** argv) {
-  for (int R : {64, 32, 16})
-    for (int S : {16, 8, 4})
-      if (ttnx_env_site_smem(R, S) > 0)
-        printf("smem R %d S %d %lld\n", R, S, ttnx_env_site_smem(R, S));
+  for (int RA : {4, 5})
+    for (int rhs : {1, 0})
+      for (int R : {64, 32, 16})
+        for (int S : {16, 8, 4})
+          if (ttnx_env_site_smem(R, S, RA, rhs) > 0)
+            printf("smem R %d S %d RA %d rhs %d %lld\n", R, S, RA, rhs,
+                   ttnx_env_site_smem(R, S, RA, rhs));
   const std::string route = argc > 2 ? argv[2] : "";
+  if (route == "clusterA")
+    return argc == 6 ? operator_only(argv[1], atoi(argv[3]), atoi(argv[4]),
+                                     atoi(argv[5]))
+                     : 2;
   const bool res = route == "resident";
   if (argc != (res ? 8 : 7)) return 2;
   const std::string dir = argv[1];

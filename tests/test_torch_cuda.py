@@ -29,6 +29,11 @@ L2; two launches bit-identical; B9's breakdown) and ``l2`` (f64, B3 at M
 ``folded`` (f64, the ragged R = 40 stack and the bf16 refine stage). B4
 and B5 likewise: ``resident`` (f32 at R = 64 and 32, warm and cold, a
 rank mask and a scattered one) and ``streamed`` (f64, R = 20 and 40).
+B1 on both of its routes: ``grid`` (f32 at RB = 64, 128, 256, one
+cooperative launch; two launches bit-identical) and ``staged`` (f64 at
+those RB, f32 at RB = 96 and the ragged shapes). B8 likewise: ``cluster``
+(f32 at R = 64, 32, 16 with RA = 5; two launches bit-identical) and
+``staged`` (f64, RA = 4).
 """
 
 import numpy as np
@@ -56,7 +61,8 @@ from ttnx_torch.kernels.env_chain import (env_chain_A_fused,
                                           left_env_chain_plain,
                                           right_env_chain_fused,
                                           right_env_chain_plain)
-from ttnx_torch.kernels.gram import gram_chain_fused, gram_chain_plain
+from ttnx_torch.kernels.gram import (GRID_RANKS, gram_chain_fused,
+                                     gram_chain_plain)
 from ttnx_torch.kernels.lanczos import (lanczos_fused, lanczos_plain,
                                         lanczos_route)
 from ttnx_torch.kernels.local_cg import (bicgstab_route,
@@ -128,6 +134,54 @@ def test_gram_chain_kernel(cuda, dtype, d, R):
     got = gram_chain_fused(yt)
     torch.cuda.synchronize()
     assert gram_chain_fused.launches == before + 1
+    _close(got, gram_chain_plain(yt), _tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", GRID_RANKS)
+def test_gram_chain_grid_route(cuda, R):
+    """B1 in f32 at the heat CN step's RB, d = 12: one launch on route
+    grid, within 1e-5 of plain, two launches bit-identical."""
+    y = np.random.default_rng(R).standard_normal((12, R, 2, R)) / np.sqrt(
+        2 * R)
+    y[:, R - 7:] = 0.0
+    (yt,) = _on(cuda, torch.float32, y)
+    before = gram_chain_fused.launches
+    got, again = gram_chain_fused(yt), gram_chain_fused(yt)
+    torch.cuda.synchronize()
+    assert gram_chain_fused.launches == before + 2
+    assert gram_chain_fused.route == "grid"
+    assert torch.equal(got, again)
+    _close(got, gram_chain_plain(yt), 1e-5)
+
+
+@pytest.mark.cuda
+def test_gram_chain_grid_refuses_unaligned_view(cuda):
+    """Route grid reads y in 16-byte copies: a contiguous view one float
+    off an aligned base is refused with a ValueError, not launched."""
+    R = GRID_RANKS[0]
+    flat = torch.zeros(4 * R * 2 * R + 1, dtype=torch.float32, device=cuda)
+    y = flat[1:].view(4, R, 2, R)
+    assert y.is_contiguous() and y.data_ptr() % 16
+    before = gram_chain_fused.launches
+    with pytest.raises(ValueError, match="16-byte"):
+        gram_chain_fused(y)
+    assert gram_chain_fused.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,R", [(torch.float64, 64),
+                                     (torch.float64, 256),
+                                     (torch.float32, 96)])
+def test_gram_chain_staged_outside_the_grid_shapes(cuda, dtype, R):
+    """f64 at the grid route's RB and f32 at the convection step's RB =
+    96 stay on route staged."""
+    y = np.random.default_rng(R + 1).standard_normal((6, R, 2, R)) / np.sqrt(
+        2 * R)
+    (yt,) = _on(cuda, dtype, y)
+    got = gram_chain_fused(yt)
+    torch.cuda.synchronize()
+    assert gram_chain_fused.route == "staged"
     _close(got, gram_chain_plain(yt), _tol(dtype))
 
 
@@ -362,8 +416,11 @@ def test_env_site_layout_matches_the_library(cuda):
     from ttnx_torch.kernels.env_chain import site_layout
 
     for R, S in ((64, 8), (64, 4), (32, 16), (32, 4), (16, 4)):
-        assert _build.query("env_site_smem", R, S) == site_layout(R,
-                                                                  S)["bytes"]
+        assert _build.query("env_site_smem", R, S, 4, 1) == site_layout(
+            R, S)["bytes"]
+    for R in (64, 32, 16):  # B8: RA = 5, no rhs
+        assert _build.query("env_site_smem", R, 4, 5, 0) == site_layout(
+            R, 4, 5, False)["bytes"]
 
 
 @pytest.mark.cuda
@@ -493,6 +550,42 @@ def test_env_chain_A_kernel(cuda, dtype, left, R):
     assert env_chain_A_fused.launches == before + 1
     assert got.shape == (d + 1, R, RA, R)
     _close(got, env_chain_A_plain(xt, At, left=left), _tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [64, 32, 16])
+@pytest.mark.parametrize("left", [False, True], ids=["right", "left"])
+def test_env_chain_A_cluster_route(cuda, R, left):
+    """B8 in f32 at RA = 5, d = 12: route cluster, within 1e-5 of plain,
+    two launches bit-identical."""
+    rng = np.random.default_rng(3 * R + left)
+    d, RA = 12, 5
+    x = rng.standard_normal((d, R, 2, R)) / np.sqrt(2 * R)
+    A = rng.standard_normal((d, RA, 2, 2, RA)) / RA
+    xt, At = _on(cuda, torch.float32, x, A)
+    got, again = env_chain_A_fused(xt, At, left=left), env_chain_A_fused(
+        xt, At, left=left)
+    torch.cuda.synchronize()
+    assert env_chain_A_fused.route == "cluster"
+    assert torch.equal(got, again)
+    _close(got, env_chain_A_plain(xt, At, left=left), 1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,RA", [(torch.float64, 5),
+                                      (torch.float32, 4)])
+def test_env_chain_A_staged_outside_the_cluster_shapes(cuda, dtype, RA):
+    """f64 at the cluster route's shape and f32 at RA = 4 stay on route
+    staged."""
+    rng = np.random.default_rng(RA)
+    d, R = 4, 32
+    x = rng.standard_normal((d, R, 2, R)) / np.sqrt(2 * R)
+    A = rng.standard_normal((d, RA, 2, 2, RA)) / RA
+    xt, At = _on(cuda, dtype, x, A)
+    got = env_chain_A_fused(xt, At)
+    torch.cuda.synchronize()
+    assert env_chain_A_fused.route == "staged"
+    _close(got, env_chain_A_plain(xt, At), _tol(dtype))
 
 
 def _spread_K(rng, M):

@@ -1,13 +1,15 @@
-"""Both routes of kernels B6 and B2 on the column-slab site update
+"""Every route of kernels B6, B2 and B8 on the column-slab site update
 (``ttnx_torch/csrc/env_chain_site.cu`` on ``env_site.cuh``) on the CPU,
 through the thread emulation of CUDA blocks in ``tests/cuda_emu`` (one
 thread per CUDA thread, 512 a block; route ``resident`` one block a
 problem, route ``cluster`` one cluster of R / 4 blocks at once with partner
 addresses mapped to the partner block's shared memory), held against the
-plain versions ``env_chain_batched_plain``, ``right_env_chain_plain`` and
-``left_env_chain_plain`` — which ``test_torch_kernels.py`` and
-``test_torch_batched.py`` hold against ttnx's kernels. Both directions,
-both env layouts (``raw`` for B6), small d, every instantiated (R, C). This checks the slabs' index
+plain versions ``env_chain_batched_plain``, ``right_env_chain_plain``,
+``left_env_chain_plain`` and (B8's route cluster: RA = 5, no rhs)
+``env_chain_A_plain`` — which ``test_torch_kernels.py``,
+``test_torch_batched.py`` and ``test_torch_dmrg.py`` hold against ttnx's
+kernels. Both directions, both env layouts (``raw`` for B6), small d,
+every instantiated (R, C). This checks the slabs' index
 arithmetic, the shared-memory layouts, the pushes and the ping-pong
 buffers without a card; the card tests (``test_torch_cuda.py``) check it
 compiled. The layouts' shared-memory bytes are checked against their
@@ -27,7 +29,8 @@ import numpy as np
 import pytest
 import torch
 
-from ttnx_torch.kernels.env_chain import (env_chain_batched_plain,
+from ttnx_torch.kernels.env_chain import (env_A_route, env_chain_A_plain,
+                                          env_chain_batched_plain,
                                           left_env_chain_plain,
                                           right_env_chain_plain, site_layout)
 
@@ -138,10 +141,68 @@ def test_cluster_route_emulated_is_deterministic_and_raw(emulator):
 
 def test_site_layout_matches_the_source(emulator):
     """The Python twin of the shared-memory layout gives the bytes the
-    source's EnvLayout does, for every instantiated (R, S)."""
+    source's EnvLayout does, for every instantiated (R, S, RA, rhs): five
+    of B2/B6 (RA = 4 with the rhs), three of B8 (RA = 5 without)."""
     *_, out = _run(emulator, "layout", ("cluster", 1, 16, 0, 0),
                    *_problem(1, 1, 16, 0))
-    seen = re.findall(r"smem R (\d+) S (\d+) (\d+)", out)
-    assert len(seen) == 5
-    for R, S, nbytes in seen:
-        assert site_layout(int(R), int(S))["bytes"] == int(nbytes)
+    seen = re.findall(r"smem R (\d+) S (\d+) RA (\d+) rhs (\d+) (\d+)",
+                      out)
+    assert len(seen) == 8
+    for R, S, RA, rhs, nbytes in seen:
+        assert site_layout(int(R), int(S), int(RA), bool(int(rhs)))[
+            "bytes"] == int(nbytes)
+    assert site_layout(64, 4, 5, False)["bytes"] == 211664
+
+
+def _problem_A(d, R, seed):
+    """Seeded B8 inputs: x (d, R, 2, R) at full rank R, A (d, 5, 2, 2, 5),
+    scaled so that the envs stay of order one along the chain."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((d, R, 2, R)) / np.sqrt(2 * R)
+    A = rng.standard_normal((d, 5, 2, 2, 5)) / 5
+    return x.astype(np.float32), A.astype(np.float32)
+
+
+def _run_A(emulator, tag, d, R, left, x, A):
+    exe, work = emulator
+    w = work / tag
+    w.mkdir(exist_ok=True)
+    x.tofile(w / "x.bin")
+    A.tofile(w / "A.bin")
+    subprocess.run([str(exe), str(w), "clusterA", str(d), str(R),
+                    str(int(left))], check=True, timeout=600,
+                   capture_output=True, text=True)
+    return np.fromfile(w / "envs.bin", np.float32)
+
+
+@pytest.mark.parametrize("R,d", [(16, 4), (64, 2)])
+@pytest.mark.parametrize("left", [False, True])
+def test_operator_only_cluster_route_emulated_matches_plain(emulator, R, d,
+                                                            left):
+    """B8's route cluster (RA = 5, no rhs) on R / 4 blocks: 4 at R = 16,
+    16 at R = 64, both directions."""
+    x, A = _problem_A(d, R, 40 + R + left)
+    got = _run_A(emulator, f"A{R}{int(left)}", d, R, left, x, A)
+    ref = env_chain_A_plain(torch.as_tensor(x), torch.as_tensor(A),
+                            left=left)
+    _close(got, ref)
+
+
+def test_operator_only_cluster_route_emulated_is_deterministic(emulator):
+    x, A = _problem_A(3, 16, 8)
+    first = _run_A(emulator, "Adet1", 3, 16, True, x, A)
+    again = _run_A(emulator, "Adet2", 3, 16, True, x, A)
+    assert np.array_equal(first.view(np.uint32), again.view(np.uint32))
+
+
+@pytest.mark.parametrize("dtype,R,n,RA,route", [
+    (torch.float32, 64, 2, 5, "cluster"), (torch.float32, 32, 2, 5,
+                                           "cluster"),
+    (torch.float32, 16, 2, 5, "cluster"), (torch.float64, 64, 2, 5,
+                                           "staged"),
+    (torch.float32, 64, 2, 4, "staged"), (torch.float32, 20, 2, 5,
+                                          "staged")])
+def test_env_A_route_table(dtype, R, n, RA, route):
+    """B8's route cluster exactly at f32, n = 2, RA = 5 and R = 64, 32,
+    16; f64 and other shapes stay on staged."""
+    assert env_A_route(dtype, R, n, RA) == route

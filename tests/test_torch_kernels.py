@@ -426,6 +426,34 @@ def test_env_site_layouts_fit_one_block():
         assert site_layout(R, 4)["bytes"] <= env_chain.SMEM_BLOCK
 
 
+def test_env_A_site_layouts_fit_one_block():
+    """B8's cluster layouts (RA = 5, no rhs) fit one SM at every rank of
+    the route: 211,664 B at R = 64."""
+    assert site_layout(64, 4, 5, False)["bytes"] == 211664
+    for R in env_chain.CLUSTER_RANKS:
+        assert site_layout(R, 4, 5, False)["bytes"] <= env_chain.SMEM_BLOCK
+
+
+@pytest.mark.parametrize("kernel", ["B1", "B8"])
+def test_cpu_tensors_at_grid_and_cluster_shapes_take_plain_b1_b8(kernel):
+    """f32 at B1's route grid (RB = 64) and B8's route cluster (R = 16,
+    RA = 5) shapes on the CPU: the plain versions, no launch, the recorded
+    route untouched."""
+    rng = np.random.default_rng(6)
+    if kernel == "B1":
+        wrapper, plain = gram_chain_fused, gram_chain_plain
+        args, kw = (_t(rng.standard_normal((3, 64, 2, 64)) / 8, F32),), {}
+    else:
+        wrapper, plain = env_chain.env_chain_A_fused, \
+            env_chain.env_chain_A_plain
+        args = (_t(rng.standard_normal((3, 16, 2, 16)) / 4, F32),
+                _t(rng.standard_normal((3, 5, 2, 2, 5)) / 5, F32))
+        kw = {"left": True}
+    route, before = wrapper.route, wrapper.launches
+    assert torch.equal(wrapper(*args, **kw), plain(*args, **kw))
+    assert (wrapper.launches, wrapper.route) == (before, route)
+
+
 @pytest.mark.parametrize("batched", [False, True], ids=["B2", "B6"])
 def test_cpu_tensors_at_site_shapes_take_plain_b2_b6(batched):
     """f32 at the new routes' shapes on the CPU: the plain versions, no

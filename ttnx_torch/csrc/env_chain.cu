@@ -2,7 +2,7 @@
 // (forward), operator and rhs envs together, for one problem (B2) or a
 // batch of B problems with a shared operator (B6).
 // This is their route "staged" (env_chain.env_route): f64 and the shapes
-// csrc/env_chain_site.cu does not take; B8 always runs here.
+// csrc/env_chain_site.cu does not take; likewise for B8 (env_A_route).
 //
 // Replaces ttnx/kernels/env_chain.py, right_env_chain_fused (_kernel),
 // left_env_chain_fused (_kernel_left) and env_chain_fused_batched
@@ -40,6 +40,8 @@
 // launches they ran before. At the DMRG bench shape (d = 10, R = 16,
 // RA = 5) a site is 4 RA (R, R) @ (R, R) products, about 0.16 MFLOP: the
 // chain is bound by its 3 d dependent launches, not by FLOPs or bytes.
+// Route "cluster" (env_chain_site.cu) takes f32 at RA = 5 and R = 64, 32,
+// 16, the DMRG sweeps' shapes, in one launch.
 #include "common.cuh"
 
 namespace ttnx_env {

@@ -1,12 +1,14 @@
 // Kernels B6 and B2 on the column-slab site update (env_site.cuh): the ALS
 // environment chains, operator and rhs envs together, f32, at (R, n, RA)
-// with n = 2, RA = 4 and Rb = R.
+// with n = 2, RA = 4 and Rb = R; and kernel B8, the operator envs alone of
+// the DMRG sweeps, f32 at n = 2, RA = 5.
 //
 // Replaces ttnx/kernels/env_chain.py, env_chain_fused_batched
-// (_kernel_b1, pallas_call at :346) with route "resident", and
+// (_kernel_b1, pallas_call at :346) with route "resident",
 // right_env_chain_fused / left_env_chain_fused (pallas_call at :420 and
-// :382) with route "cluster", as csrc/env_chain.cu (route "staged") does
-// for f64 and every other shape.
+// :382) with route "cluster", and env_chain_A_fused (_kernel_A,
+// pallas_call at :238) with route "cluster", as csrc/env_chain.cu (route
+// "staged") does for f64 and every other shape.
 //
 // What bounds it on the H100: a site of the chain is about 10.9 MFLOP of
 // f32 FMA at R = 64 (2.7 at R = 32, 0.7 at R = 16), and the d sites of a
@@ -36,6 +38,12 @@
 // No slab depends on another's sums, so two launches give the same bits.
 // The launch asks cudaOccupancyMaxActiveClusters first (launch_cluster):
 // no fit is an error, never another route.
+//
+// B8's route "cluster" (env_A_cluster_kernel) is B2's with RA = 5 and no
+// rhs: one push of the env slab and one cluster barrier a site, 211,664 B
+// of shared memory a CTA at R = 64 (a site is about 11.3 MFLOP there,
+// about B2's 10.9 with its rhs). Route "staged" ran it as three launches a
+// site, the MPO mix an elementwise pass through device scratch.
 #include "env_site.cuh"
 
 namespace ttnx_envsite {
@@ -79,6 +87,23 @@ __global__ void __launch_bounds__(kThreads, 1)
   c.run(ttnx_cluster::cluster_rank());
 }
 
+template <int R, int C>
+__global__ void __launch_bounds__(kThreads, 1)
+    env_A_cluster_kernel(const float* x, const float* A, float* envs, int d,
+                         int left) {
+  EnvChain<R, R / C, C, 5, false> c;
+  c.sm = env_smem;
+  c.x = x;
+  c.A = A;
+  c.b = nullptr;
+  c.envs = envs;
+  c.envs_b = nullptr;
+  c.d = d;
+  c.left = left;
+  c.raw = 0;
+  c.run(ttnx_cluster::cluster_rank());
+}
+
 // The slab width of route resident at rank R: every thread of the first
 // product busy.
 template <int R>
@@ -109,17 +134,34 @@ int cluster(const float* x, const float* A, const float* b, float* envs,
       env_cluster_kernel<R, C>, C, kThreads, EnvLayout<R, R / C>::BYTES, st,
       &fits, x, A, b, envs, envs_b, d, left, raw);
 }
+
+template <int R, int C>
+int cluster_A(const float* x, const float* A, float* envs, int d, int left,
+              cudaStream_t st) {
+  static size_t fits = 0;
+  return ttnx_cluster::launch_cluster(
+      env_A_cluster_kernel<R, C>, C, kThreads,
+      EnvLayout<R, R / C, 5, false>::BYTES, st, &fits, x, A, envs, d, left);
+}
 }  // namespace ttnx_envsite
 
-// Shared-memory bytes of one block (CTA) at rank R and slab width S, for
-// the instantiated shapes (else -1).
-extern "C" long long ttnx_env_site_smem(int R, int S) {
+// Shared-memory bytes of one block (CTA) at rank R, slab width S, MPO bond
+// RA, with the rhs envs (rhs 1, B2 and B6) or without (0, B8), for the
+// instantiated shapes (else -1).
+extern "C" long long ttnx_env_site_smem(int R, int S, int RA, int rhs) {
   using ttnx_envsite::EnvLayout;
-  if (R == 64 && S == 8) return EnvLayout<64, 8>::BYTES;
-  if (R == 64 && S == 4) return EnvLayout<64, 4>::BYTES;
-  if (R == 32 && S == 16) return EnvLayout<32, 16>::BYTES;
-  if (R == 32 && S == 4) return EnvLayout<32, 4>::BYTES;
-  if (R == 16 && S == 4) return EnvLayout<16, 4>::BYTES;
+  if (RA == 4 && rhs) {
+    if (R == 64 && S == 8) return EnvLayout<64, 8>::BYTES;
+    if (R == 64 && S == 4) return EnvLayout<64, 4>::BYTES;
+    if (R == 32 && S == 16) return EnvLayout<32, 16>::BYTES;
+    if (R == 32 && S == 4) return EnvLayout<32, 4>::BYTES;
+    if (R == 16 && S == 4) return EnvLayout<16, 4>::BYTES;
+  }
+  if (RA == 5 && !rhs && S == 4) {
+    if (R == 64) return EnvLayout<64, 4, 5, false>::BYTES;
+    if (R == 32) return EnvLayout<32, 4, 5, false>::BYTES;
+    if (R == 16) return EnvLayout<16, 4, 5, false>::BYTES;
+  }
   return -1;
 }
 
@@ -165,5 +207,22 @@ extern "C" int ttnx_env_chain_cluster_f32(const void* x, const void* A,
   if (R == 64) return cluster<64, 16>(xx, a, bb, e, eb, d, left, raw, st);
   if (R == 32) return cluster<32, 8>(xx, a, bb, e, eb, d, left, raw, st);
   if (R == 16) return cluster<16, 4>(xx, a, bb, e, eb, d, left, raw, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// B8, route cluster: the operator envs of one chain on a cluster of R / 4
+// CTAs, public layout. R = 64, 32 or 16, n = 2, RA = 5; other shapes are
+// refused.
+extern "C" int ttnx_env_chain_A_cluster_f32(const void* x, const void* A,
+                                            void* envs, int d, int R, int RA,
+                                            int n, int left, void* stream) {
+  if (n != 2 || RA != 5 || d < 1) return (int)cudaErrorInvalidValue;
+  const auto *xx = (const float*)x, *a = (const float*)A;
+  auto* e = (float*)envs;
+  auto st = (cudaStream_t)stream;
+  using namespace ttnx_envsite;
+  if (R == 64) return cluster_A<64, 16>(xx, a, e, d, left, st);
+  if (R == 32) return cluster_A<32, 8>(xx, a, e, d, left, st);
+  if (R == 16) return cluster_A<16, 4>(xx, a, e, d, left, st);
   return (int)cudaErrorInvalidValue;
 }

@@ -31,6 +31,11 @@
 // the next site's cores are not prefetched); at R = 32, S = 16: 79,104 B.
 // The next env is written into the second buffer of ET / RB (in every
 // CTA of a cluster), since the current one is read by every slab.
+//
+// The MPO bond RA is a template parameter: 4 for B2 and B6, 5 for kernel
+// B8 (the operator-only chain of the DMRG sweeps, XXX and XXZ MPOs), which
+// runs the same update with no rhs (RHS false: no RB, BS, SB, no rhs
+// products; 211,664 B at R = 64, S = 4).
 #pragma once
 
 #include "dense_cluster.cuh"
@@ -39,7 +44,7 @@
 namespace ttnx_envsite {
 using namespace ttnx_site;
 
-constexpr int kN = 2, kRA = 4;  // instantiated for n = 2, RA = 4
+constexpr int kN = 2;  // instantiated for n = 2
 
 // One block GEMM C (M x N) = A (M x K) B (K x N) from shared memory: the
 // engine's gemm at the first (TM, KS) that tiles it in whole warps, else
@@ -78,18 +83,18 @@ __device__ __forceinline__ void block_gemm(const PA& pa, const PB& pb,
   }
 }
 
-template <int R, int S>
+template <int R, int S, int RA = 4, bool RHS = true>
 struct EnvLayout {
   static_assert(S >= 4 && S % 4 == 0 && R % S == 0, "slab of float4s");
-  static constexpr int LDP = R + 4, LDR = kRA * R + 4, LDS = kN * R + 4,
+  static constexpr int LDP = R + 4, LDR = RA * R + 4, LDS = kN * R + 4,
                        LDQ = R + 4;
-  static constexpr int NCOEF = kRA * kN * kN * kRA;
+  static constexpr int NCOEF = RA * kN * kN * RA;
   static constexpr int OFF_ET = 0, OFF_X = 2 * R * LDR,
                        OFF_S2 = OFF_X + kN * R * LDP,
-                       OFF_RB = OFF_S2 + kRA * S * LDS,
-                       OFF_BS = OFF_RB + 2 * R * LDQ,
-                       OFF_SB = OFF_BS + kN * S * LDP,
-                       OFF_A = OFF_SB + kN * S * LDP,
+                       OFF_RB = OFF_S2 + RA * S * LDS,
+                       OFF_BS = OFF_RB + (RHS ? 2 * R * LDQ : 0),
+                       OFF_SB = OFF_BS + (RHS ? kN * S * LDP : 0),
+                       OFF_A = OFF_SB + (RHS ? kN * S * LDP : 0),
                        FLOATS = OFF_A + NCOEF;
   static constexpr size_t BYTES = FLOATS * sizeof(float);
 };
@@ -99,11 +104,11 @@ struct EnvLayout {
 // row bl): a 2 x RA x 4 register tile over part g of q, the KP parts
 // summed by a reduce-scatter over p (consecutive lane groups), then the
 // mix with A in registers.
-template <int R, int S>
+template <int R, int S, int RA>
 __device__ __forceinline__ void rows_mix(const float* X, const float* ET,
                                          const float* Ac, float* S2,
                                          int b0) {
-  using L = EnvLayout<R, S>;
+  using L = EnvLayout<R, S, RA>;
   constexpr int NPQ = R / 4, PL = NPQ < 8 ? NPQ : 8, PH = NPQ / PL;
   constexpr int KP0 = kThreads / (S * NPQ);
   constexpr int KP = KP0 >= 4 ? 4 : (KP0 >= 2 ? 2 : 1);
@@ -115,7 +120,7 @@ __device__ __forceinline__ void rows_mix(const float* X, const float* ET,
   const int pql = tid % PL, g = (tid / PL) % KP, rest = tid / (PL * KP);
   const int bl = rest / PH, p0 = ((rest % PH) * PL + pql) * 4;
   const float* x0 = X + (b0 + bl) * kN * L::LDP;
-  float acc[kN][kRA][4] = {};
+  float acc[kN][RA][4] = {};
 #pragma unroll 1
   for (int q = 4 * g; q < R; q += 4 * KP) {
     const float4 u0 = ld4(x0 + q), u1 = ld4(x0 + L::LDP + q);
@@ -125,7 +130,7 @@ __device__ __forceinline__ void rows_mix(const float* X, const float* ET,
     for (int qq = 0; qq < 4; ++qq) {
       const float* et = ET + (q + qq) * L::LDR + p0;
 #pragma unroll
-      for (int w = 0; w < kRA; ++w) {
+      for (int w = 0; w < RA; ++w) {
         const float4 e = ld4(et + w * R);
 #pragma unroll
         for (int J = 0; J < kN; ++J) {
@@ -143,7 +148,7 @@ __device__ __forceinline__ void rows_mix(const float* X, const float* ET,
 #pragma unroll
     for (int J = 0; J < kN; ++J)
 #pragma unroll
-      for (int w = 0; w < kRA; ++w)
+      for (int w = 0; w < RA; ++w)
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const float lo = acc[J][w][c], hi = acc[J][w][c + 2];
@@ -157,7 +162,7 @@ __device__ __forceinline__ void rows_mix(const float* X, const float* ET,
 #pragma unroll
     for (int J = 0; J < kN; ++J)
 #pragma unroll
-      for (int w = 0; w < kRA; ++w) {
+      for (int w = 0; w < RA; ++w) {
         const float lo = acc[J][w][0], hi = acc[J][w][1];
         acc[J][w][0] =
             (up ? hi : lo) + __shfl_xor_sync(kFull, up ? lo : hi, PL);
@@ -167,36 +172,36 @@ __device__ __forceinline__ void rows_mix(const float* X, const float* ET,
 #pragma unroll
   for (int c = 0; c < 4 / KP; ++c)
 #pragma unroll
-    for (int W = 0; W < kRA; ++W)
+    for (int W = 0; W < RA; ++W)
 #pragma unroll
       for (int i = 0; i < kN; ++i) {
         float o = 0.f;
 #pragma unroll
         for (int J = 0; J < kN; ++J) {
-          const float4 cf = ld4(Ac + ((W * kN + i) * kN + J) * kRA);
-          o = fmaf(cf.x, acc[J][0][c], o);
-          o = fmaf(cf.y, acc[J][1][c], o);
-          o = fmaf(cf.z, acc[J][2][c], o);
-          o = fmaf(cf.w, acc[J][3][c], o);
+          const float* cw = Ac + ((W * kN + i) * kN + J) * RA;
+#pragma unroll
+          for (int w = 0; w < RA; ++w) o = fmaf(cw[w], acc[J][w][c], o);
         }
         S2[(W * S + bl) * L::LDS + i * R + p0 + pb + c] = o;
       }
 }
 
 // index of env[a, W, b] in one (R, RA, R) env, or in its raw (RA, R, R)
-__device__ __forceinline__ size_t env_index(int R, int raw, int a, int W,
-                                            int b) {
-  return raw ? ((size_t)W * R + a) * R + b : ((size_t)a * kRA + W) * R + b;
+__device__ __forceinline__ size_t env_index(int R, int RA, int raw, int a,
+                                            int W, int b) {
+  return raw ? ((size_t)W * R + a) * R + b : ((size_t)a * RA + W) * R + b;
 }
 
 // The chain of one problem: C == 1 walks every slab in one block (B6);
 // C > 1 is one CTA of a cluster that owns slab `rank` and pushes its
-// columns of the next envs into every partner (B2).
-template <int R, int S, int C>
+// columns of the next envs into every partner (B2, B8). RHS false: the
+// operator envs alone (B8; b and envs_b unused).
+template <int R, int S, int C, int RA = 4, bool RHS = true>
 struct EnvChain {
-  using L = EnvLayout<R, S>;
+  using L = EnvLayout<R, S, RA, RHS>;
   static_assert(C == 1 || C * S == R, "a CTA a slab");
-  static constexpr int V = R * kN * R, E = R * kRA * R;
+  static_assert(RHS || C > 1, "the operator envs alone run on a cluster");
+  static constexpr int V = R * kN * R, E = R * RA * R;
   float* sm;  // the dynamic shared memory
   const float *x, *A, *b;
   float *envs, *envs_b;
@@ -246,9 +251,9 @@ struct EnvChain {
     }
     const float* Ak = A + k * L::NCOEF;
     for (int e = threadIdx.x; e < L::NCOEF; e += kThreads) {
-      const int w = e % kRA, J = (e / kRA) % kN, i = (e / (kRA * kN)) % kN,
-                W = e / (kRA * kN * kN);
-      Ac()[e] = left ? Ak[((w * kN + i) * kN + J) * kRA + W] : Ak[e];
+      const int w = e % RA, J = (e / RA) % kN, i = (e / (RA * kN)) % kN,
+                W = e / (RA * kN * kN);
+      Ac()[e] = left ? Ak[((w * kN + i) * kN + J) * RA + W] : Ak[e];
     }
   }
 
@@ -268,17 +273,30 @@ struct EnvChain {
   // too. Starts after a barrier behind stage_site; ends without one.
   __device__ void slab(int k, int b0, int cur, int rank) const {
     const int nxt = cur ^ 1;
-    stage_rows(k, b0);
-    rows_mix<R, S>(X(), ET(cur), Ac(), S2(), b0);
+    if constexpr (RHS) stage_rows(k, b0);
+    rows_mix<R, S, RA>(X(), ET(cur), Ac(), S2(), b0);
     __syncthreads();
     // next env^T [b][(W,a)] = sum_{(i,p)} S2[(W,b)][(i,p)] X[(a,i)][p]
     float* et = ET(nxt) + b0 * L::LDR;
-    block_gemm<kRA * S, R, kN * R, false, true>(
+    block_gemm<RA * S, R, kN * R, false, true>(
         [&](int m, int k) { return S2() + m * L::LDS + k; },
         [&](int n, int k) { return X() + (n * kN + k / R) * L::LDP + k % R; },
         [&](int m, int n, float4 v) {
           st4(et + (m % S) * L::LDR + (m / S) * R + n, v);
         });
+    if constexpr (RHS) {
+      rhs_slab(b0, cur, rank, et);
+    } else {
+      __syncthreads();
+      push(et, S, RA * R, L::LDR, rank);
+    }
+  }
+
+  // The rhs half of the slab b0.. (after the env product into et): from
+  // RB(cur) into RB(nxt), and the pushes of et and of the rhs columns in a
+  // cluster. Ends without a barrier.
+  __device__ void rhs_slab(int b0, int cur, int rank, float* et) const {
+    const int nxt = cur ^ 1;
     // SB[(u,i)][p] = sum_v BS[(u,i)][v] RB[p][v]
     const float* rb = RB(cur);
     block_gemm<kN * S, R, R, false, true>(
@@ -286,7 +304,7 @@ struct EnvChain {
         [&](int n, int k) { return rb + n * L::LDQ + k; },
         [&](int m, int n, float4 v) { st4(SB() + m * L::LDP + n, v); });
     __syncthreads();
-    if constexpr (C > 1) push(et, S, kRA * R, L::LDR, rank);
+    if constexpr (C > 1) push(et, S, RA * R, L::LDR, rank);
     // next rhs env [a][b0 + u] = sum_{(i,p)} X[(a,i)][p] SB[(u,i)][p]
     float* rn = RB(nxt) + b0;
     block_gemm<R, S, kN * R, false, true>(
@@ -304,16 +322,18 @@ struct EnvChain {
   __device__ void write_out(int slot, int i, int b0, int cols) const {
     float* eo = envs + (size_t)slot * E;
     const float* et = ET(i);
-    for (int e = threadIdx.x; e < R * kRA * cols; e += kThreads) {
-      const int bl = e % cols, aw = e / cols, a = aw / kRA, W = aw % kRA;
-      eo[env_index(R, raw, a, W, b0 + bl)] =
+    for (int e = threadIdx.x; e < R * RA * cols; e += kThreads) {
+      const int bl = e % cols, aw = e / cols, a = aw / RA, W = aw % RA;
+      eo[env_index(R, RA, raw, a, W, b0 + bl)] =
           et[(b0 + bl) * L::LDR + W * R + a];
     }
-    float* bo = envs_b + (size_t)slot * R * R;
-    const float* rb = RB(i);
-    for (int e = threadIdx.x; e < R * cols; e += kThreads) {
-      const int ul = e % cols, a = e / cols;
-      bo[a * R + b0 + ul] = rb[a * L::LDQ + b0 + ul];
+    if constexpr (RHS) {
+      float* bo = envs_b + (size_t)slot * R * R;
+      const float* rb = RB(i);
+      for (int e = threadIdx.x; e < R * cols; e += kThreads) {
+        const int ul = e % cols, a = e / cols;
+        bo[a * R + b0 + ul] = rb[a * L::LDQ + b0 + ul];
+      }
     }
   }
 
@@ -322,8 +342,9 @@ struct EnvChain {
     const int b0 = C == 1 ? 0 : rank * S, cols = C == 1 ? R : S;
     for (int e = threadIdx.x; e < R * L::LDR; e += kThreads)
       ET(0)[e] = e == 0 ? 1.f : 0.f;
-    for (int e = threadIdx.x; e < R * L::LDQ; e += kThreads)
-      RB(0)[e] = e == 0 ? 1.f : 0.f;
+    if constexpr (RHS)
+      for (int e = threadIdx.x; e < R * L::LDQ; e += kThreads)
+        RB(0)[e] = e == 0 ? 1.f : 0.f;
     __syncthreads();
     write_out(left ? 0 : d, 0, b0, cols);
     if constexpr (C > 1) ttnx_cluster::cluster_sync();  // partners started

@@ -17,7 +17,9 @@
 // whose order is the dependency: T_i = y_i @ G for all i (grid tiles x n),
 // then G_new = sum_i T_i @ y_i^T (grid tiles, the sum over i folded into
 // the k loop). y is read through strided views, with no (d, n, R, R)
-// transpose. Later work: one persistent cooperative launch over the chain.
+// transpose. This is route "staged" (gram.gram_route): f64 and every shape
+// but f32 at n = 2 and R = 64, 128, 256, which csrc/gram_chain_grid.cu
+// walks in one persistent cooperative launch (route "grid").
 #include "common.cuh"
 
 namespace ttnx_gram {

@@ -15,8 +15,8 @@ entry point takes ``c_void_p`` for pointers and the stream, ``c_int`` for
 sizes (``c_longlong`` for an element stride), and returns ``cudaGetLastError()`` after its launches. Each entry
 point exists for the dtype suffixes its signature lists: ``f32`` and
 ``f64`` for the linear-algebra kernels, ``f32`` alone for the
-site-resident routes of B7, B4/B5 and B6 and the cluster routes of B2,
-B3, B9 and B10,
+site-resident routes of B7, B4/B5 and B6, the cluster routes of B2,
+B3, B8, B9 and B10 and the grid route of B1,
 ``bf16`` and ``f32`` for the contraction kernels, ``bf16`` alone for
 their tensor-core routes.
 """
@@ -47,12 +47,16 @@ MM = ("bf16", "f32")    # the contraction kernels: the TPU kernels' types
 _SIGNATURES = {
     # y, out, scratch, d, R, n, stream
     "gram_chain": ([P, P, P, I, I, I, P], REAL),
+    # the same; R = 64, 128 or 256, n = 2
+    "gram_chain_grid": ([P, P, P, I, I, I, P], ("f32",)),
     # x, A, b, envs, envs_b, scratch, d, R, RA, n, Rb, stream
     "env_chain_right": ([P, P, P, P, P, P, I, I, I, I, I, P], REAL),
     "env_chain_left": ([P, P, P, P, P, P, I, I, I, I, I, P], REAL),
     # x, A, envs, scratch, d, R, RA, n, stream
     "env_chain_A_right": ([P, P, P, P, I, I, I, I, P], REAL),
     "env_chain_A_left": ([P, P, P, P, I, I, I, I, P], REAL),
+    # x, A, envs, d, R, RA, n, left, stream; R = 64, 32 or 16, n = 2, RA = 5
+    "env_chain_A_cluster": ([P, P, P, I, I, I, I, I, P], ("f32",)),
     # K, v0, Q, alphas, betas, M, iters, stream
     "lanczos": ([P, P, P, P, P, I, I, P], REAL),
     "lanczos_cluster": ([P, P, P, P, P, I, I, P], ("f32",)),
@@ -104,8 +108,8 @@ _QUERIES = {
     # d, R, RA, n -> scratch elements per problem of als_sweep_pair
     "als_sweep_pair_scratch": [I, I, I, I],
     "als_sweep_site_scratch": [I, I, I, I],
-    # R, S -> shared-memory bytes of the env site kernels' block
-    "env_site_smem": [I, I],
+    # R, S, RA, rhs -> shared-memory bytes of the env site kernels' block
+    "env_site_smem": [I, I, I, I],
 }
 
 _LIB = None

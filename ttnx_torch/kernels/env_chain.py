@@ -24,7 +24,11 @@ chain with the envs in shared memory (``csrc/env_chain_site.cu``);
 with the same n, RA, Rb: one thread-block cluster of R / 4 CTAs, each
 owning four columns of the new envs (the same source); ``"staged"`` —
 the multi-launch kernels of ``csrc/env_chain.cu`` (a few launches a site)
-for f64 and every other shape. B8 always takes ``"staged"``.
+for f64 and every other shape. B8 picks its kernel by :func:`env_A_route`
+(separate from :func:`env_route`, so forcing one leaves the other):
+``"cluster"`` — f32 at R = 64, 32 or 16 with n = 2, RA = 5 (the XXX and
+XXZ MPOs): B2's cluster update with no rhs (the same source);
+``"staged"`` — ``csrc/env_chain.cu`` for f64 and every other shape.
 :func:`site_layout` mirrors the site kernels' shared-memory layout.
 
 ``x`` must already carry its rank masks. Every plain
@@ -44,7 +48,7 @@ __all__ = ["right_env_chain_fused", "left_env_chain_fused",
            "right_env_chain_plain", "left_env_chain_plain",
            "env_chain_fused_batched", "env_chain_batched_plain",
            "env_chain_A_fused", "env_chain_A_plain", "env_route",
-           "site_layout", "RESIDENT_SLAB", "CLUSTER_RANKS",
+           "env_A_route", "site_layout", "RESIDENT_SLAB", "CLUSTER_RANKS",
            "right_env_update", "right_env_b_update", "left_env_update",
            "left_env_b_update", "boundary_envs"]
 
@@ -55,13 +59,15 @@ RESIDENT_SLAB = {64: 8, 32: 16}  # R -> slab width of route resident
 CLUSTER_RANKS = (64, 32, 16)
 
 
-def site_layout(R: int, S: int) -> dict:
-    """One block's shared memory in routes resident and cluster at rank R
-    and slab width S, as ``EnvLayout`` in ``csrc/env_site.cuh`` lays it
-    out (n = 2, RA = 4): ``floats`` and ``bytes``."""
-    ldp, ldr, lds, ldq = R + 4, 4 * R + 4, 2 * R + 4, R + 4
-    floats = (2 * R * ldr + 2 * R * ldp + 4 * S * lds + 2 * R * ldq
-              + 2 * 2 * S * ldp + 4 * 2 * 2 * 4)
+def site_layout(R: int, S: int, RA: int = 4, rhs: bool = True) -> dict:
+    """One block's shared memory in routes resident and cluster at rank R,
+    slab width S and MPO bond RA, with the rhs envs (B2, B6) or without
+    (B8), as ``EnvLayout`` in ``csrc/env_site.cuh`` lays it out (n = 2):
+    ``floats`` and ``bytes``."""
+    ldp, ldr, lds, ldq = R + 4, RA * R + 4, 2 * R + 4, R + 4
+    floats = 2 * R * ldr + 2 * R * ldp + RA * S * lds + RA * 2 * 2 * RA
+    if rhs:
+        floats += 2 * R * ldq + 2 * 2 * S * ldp
     return dict(floats=floats, bytes=4 * floats)
 
 
@@ -74,6 +80,14 @@ def env_route(dtype, B: int, R: int, n: int, RA: int, Rb: int) -> str:
         return "cluster"
     if B > 1 and R in RESIDENT_SLAB:
         return "resident"
+    return "staged"
+
+
+def env_A_route(dtype, R: int, n: int, RA: int) -> str:
+    """The kernel of B8 for a chain of rank ``R``: ``"cluster"`` or
+    ``"staged"``."""
+    if dtype == torch.float32 and n == 2 and RA == 5 and R in CLUSTER_RANKS:
+        return "cluster"
     return "staged"
 
 
@@ -289,12 +303,18 @@ def env_chain_A_fused(x, A, *, left: bool = False):
                          f"(d,RA,n,n,RA)")
     x, A = x.contiguous(), A.contiguous()
     envs = torch.empty((d + 1, R, RA, R), dtype=x.dtype, device=x.device)
-    scratch = torch.empty(2 * n * RA * R * R, dtype=x.dtype, device=x.device)
-    _build.call("env_chain_A_left" if left else "env_chain_A_right", x.dtype,
-                x.data_ptr(), A.data_ptr(), envs.data_ptr(),
-                scratch.data_ptr(), d, R, RA, n)
+    route = env_A_route(x.dtype, R, n, RA)
+    if route == "cluster":
+        _build.call("env_chain_A_cluster", x.dtype, x.data_ptr(),
+                    A.data_ptr(), envs.data_ptr(), d, R, RA, n, int(left))
+    else:
+        scratch = torch.empty(2 * n * RA * R * R, dtype=x.dtype,
+                              device=x.device)
+        _build.call("env_chain_A_left" if left else "env_chain_A_right",
+                    x.dtype, x.data_ptr(), A.data_ptr(), envs.data_ptr(),
+                    scratch.data_ptr(), d, R, RA, n)
     env_chain_A_fused.launches += 1
-    env_chain_A_fused.route = "staged"
+    env_chain_A_fused.route = route
     return envs
 
 

@@ -6,8 +6,15 @@ Gram-based rounding needs the right Gram matrices of the applied chain::
     G_k = sum_i  y_k[:, i, :] @ G_{k+1} @ y_k[:, i, :]^H     k = d-1 .. 1
 
 The backward sweep is pure matrix products. :func:`gram_chain_fused` runs
-it through the hand-written Hopper kernel (``csrc/gram_chain.cu``) for a
-CUDA tensor and through :func:`gram_chain_plain` for a CPU tensor.
+it through a hand-written Hopper kernel for a CUDA tensor and through
+:func:`gram_chain_plain` for a CPU tensor. The kernel is chosen by dtype
+and shape before the launch, never on a failure (:func:`gram_route`; the
+wrapper keeps the route of its last launch in its ``route`` attribute):
+``"grid"`` — f32 at n = 2 and R = 64, 128 or 256 (the heat CN step's
+stacks): one persistent cooperative launch walks the whole chain with
+every site spread over the card (``csrc/gram_chain_grid.cu``);
+``"staged"`` — two launches a site (``csrc/gram_chain.cu``) for f64 and
+every other shape, e.g. the convection step's R = 96.
 """
 
 from __future__ import annotations
@@ -17,7 +24,18 @@ import torch
 from ttnx_torch.kernels import _build
 from ttnx_torch.kernels.dispatch import counted, require_real, use_kernel
 
-__all__ = ["gram_chain_fused", "gram_chain_plain"]
+__all__ = ["gram_chain_fused", "gram_chain_plain", "gram_route",
+           "GRID_RANKS"]
+
+GRID_RANKS = (64, 128, 256)  # R of route grid (n = 2, f32)
+
+
+def gram_route(dtype, d: int, R: int, n: int) -> str:
+    """The kernel of B1 for a chain ``(d, R, n, R)``: ``"grid"`` or
+    ``"staged"``."""
+    if dtype == torch.float32 and n == 2 and R in GRID_RANKS and d >= 1:
+        return "grid"
+    return "staged"
 
 
 def gram_chain_plain(y: torch.Tensor) -> torch.Tensor:
@@ -50,7 +68,19 @@ def gram_chain_fused(y: torch.Tensor) -> torch.Tensor:
     d, R, n, _ = y.shape
     out = torch.empty((d, R, R), dtype=y.dtype, device=y.device)
     scratch = torch.empty((n, R, R), dtype=y.dtype, device=y.device)
-    _build.call("gram_chain", y.dtype, y.data_ptr(), out.data_ptr(),
-                scratch.data_ptr(), d, R, n)
+    route = gram_route(y.dtype, d, R, n)
+    if route == "grid":
+        if y.data_ptr() % 16:  # the kernel reads y in 16-byte copies
+            raise ValueError("gram_chain_fused: route grid needs y 16-byte "
+                             "aligned (a view at an offset of 4k floats)")
+        _build.call("gram_chain_grid", y.dtype, y.data_ptr(),
+                    out.data_ptr(), scratch.data_ptr(), d, R, n)
+    else:
+        _build.call("gram_chain", y.dtype, y.data_ptr(), out.data_ptr(),
+                    scratch.data_ptr(), d, R, n)
     gram_chain_fused.launches += 1
+    gram_chain_fused.route = route
     return out
+
+
+gram_chain_fused.route = None
