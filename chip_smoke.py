@@ -123,6 +123,27 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    bound, B11 and B12 on route "wgmma"; beside the bench chain's decay,
    the norm ratios of B11 after 2048 and of B12 after 1024 iterations on
    their norm-keeping inputs.
+10. QTT constructors, ALS eigensolve and MALS (phase wall time logged,
+   10a on its own line): (a) at d = 12 in f64 on the card, against the
+   closed forms of their reference tests: qtto_to_matrix of laplacian,
+   laplacian_DN/ND/NN/P, shift and gradient against the numpy
+   tridiagonal matrices, inv_laplacian_DN @ laplacian_DN against the
+   identity (np.allclose's rtol 1e-5, atol 1e-8), fourier_qtto on a
+   bit-reversed seeded QTT against torch.fft.fft (rel <= 1e-10),
+   function_to_qtt, qtt_cos, qtt_exp and qtt_polynom against the sampled
+   functions (atol 1e-12), and qtt_laplacian(2, 10) applied to
+   function_to_qttv(sin sin) against the DN stencil on the 1024 x 1024
+   grid (allclose); (b) als_eigsolve_scan of the XXX chain, d = 12, R =
+   32, f32, 2 sweeps after a warm-up sweep: the last energy within rel
+   1e-5 of the dense ground energy, every energy finite and >= E0 - 1e-5
+   |E0|, exactly 2 B8 launches a sweep on route "cluster", kernel against
+   plain (energy rel <= 1e-5, state overlap >= 1 - 1e-4), B8 held on the
+   last chains (every slab nonzero, two launches bit-identical), ms/sweep
+   through the kernel and plain; (c) mals_linsolve_scan of laplacian(12),
+   b = A u_sin, a seeded rank-4 start, rmax = 64, tol 1e-12, one sweep:
+   f64 rel error to u_sin <= 1e-9, f32 reported; ms/sweep, realized ranks,
+   peak device memory; (d) mals_eigsolve_scan of the XXX chain at d = 10,
+   rmax = 16, f32, 2 sweeps: the last energy within rel 1e-5.
 
 The last two lines are a JSON summary of the kernels (13 rows: errors,
 times, bound, library time; ``kernel_route`` the wrapper's route where it
@@ -171,13 +192,20 @@ CONV_RMAX, CONV_C, BICG_ITERS, CONV_SITE = 16, 1e3, 32, 15
 # contraction chain (bench_pallas_chain) and its ceiling (bench.py:176-234)
 CHAIN_ITERS, CEIL_ITERS, SHORT_ITERS = 2048, 1024, 8
 BF16_ULP = 2.0 ** -8
+# the QTT constructors and the scan-tier eigen and MALS solvers (slice 13):
+# (d, rmax) of the ALS eigensolve, the MALS linear solve and the MALS
+# eigensolve, and the bits a dimension of the 2-D Laplacian
+QTT_D, LAP2D_BITS = 12, 10
+ALS_EIG, ALS_EIG_SWEEPS = (12, 32), 2
+MALS_LIN, MALS_EIG = (12, 64), (10, 16)
 # published dense peaks of one H100 SXM (NVIDIA's data sheet): FLOP/s by
 # operand type of the summarized rows (bf16 on the tensor cores, f32 on
 # the CUDA cores) and device-memory bytes/s
 PEAK = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM = 3.35e12
 
-# wrapper name -> (label, patched module, source, TPU kernel it replaces)
+# wrapper name -> (label, patched module or modules, source, TPU kernel it
+# replaces)
 KERNELS = {
     "gram_chain_fused": (
         "B1", "ttnx_torch.solvers.round_scan",
@@ -205,7 +233,7 @@ KERNELS = {
         "ttnx_torch/csrc/als_sweep_fused.cu",
         "ttnx/kernels/als_sweep_fused.py:545"),
     "env_chain_A_fused": (
-        "B8", "ttnx_torch.solvers.dmrg_scan",
+        "B8", ("ttnx_torch.solvers.dmrg_scan", "ttnx_torch.solvers.als_scan"),
         "ttnx_torch/csrc/env_chain.cu", "ttnx/kernels/env_chain.py:238"),
     "lanczos_fused": (
         "B9", "ttnx_torch.solvers.dmrg_scan",
@@ -277,9 +305,11 @@ def solver_calls(replace):
     saved = []
     try:
         for name, (kernel, plain) in wrappers().items():
-            mod = importlib.import_module(KERNELS[name][1])
-            saved.append((mod, name, getattr(mod, name)))
-            setattr(mod, name, replace(name, kernel, plain))
+            mods = KERNELS[name][1]
+            for modname in mods if isinstance(mods, tuple) else (mods,):
+                mod = importlib.import_module(modname)
+                saved.append((mod, name, getattr(mod, name)))
+                setattr(mod, name, replace(name, kernel, plain))
         yield
     finally:
         for mod, name, fn in saved:
@@ -1626,6 +1656,214 @@ def phase_contraction_path(device):
     return counts, rows
 
 
+# ---------------------------------------------------------------------------
+# QTT constructors, ALS eigensolve and MALS (slice 13)
+# ---------------------------------------------------------------------------
+
+
+def tridiag(n, alpha, beta, gamma):
+    """alpha*I + beta*superdiag + gamma*subdiag (numpy)."""
+    return (alpha * np.eye(n) + beta * np.eye(n, k=1)
+            + gamma * np.eye(n, k=-1))
+
+
+def held(label, ok, err):
+    """Log one closed-form comparison; raise if it fails."""
+    log(f"qtt {label}: max abs err {err:.3e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise RuntimeError(f"qtt {label} disagrees with its closed form "
+                           f"(max abs err {err:.3e})")
+
+
+def allclose(label, got, ref):
+    """``np.allclose``'s test (rtol 1e-5, atol 1e-8), the reference tests'
+    own, on the card."""
+    ref = torch.as_tensor(ref, device=got.device)
+    err = float((got - ref).abs().max())
+    held(label, bool(torch.allclose(got, ref)), err)
+
+
+def constructors_on_card(device):
+    """10a: the constructors at d = QTT_D in f64 (complex128 for Fourier)
+    against the closed forms of their reference tests."""
+    import ttnx_torch as tx
+
+    d, N = QTT_D, 2 ** QTT_D
+    lap = tridiag(N, 2, -1, -1)
+    bc = {}
+    for name, first, last in (("DN", 2, 1), ("ND", 1, 2), ("NN", 1, 1)):
+        bc[name] = lap.copy()
+        bc[name][0, 0], bc[name][-1, -1] = first, last
+    per = lap.copy()
+    per[0, -1] = per[-1, 0] = -1
+    for label, op, ref in (("laplacian", tx.laplacian, lap),
+                           ("laplacian_DN", tx.laplacian_DN, bc["DN"]),
+                           ("laplacian_ND", tx.laplacian_ND, bc["ND"]),
+                           ("laplacian_NN", tx.laplacian_NN, bc["NN"]),
+                           ("laplacian_P", tx.laplacian_P, per),
+                           ("shift", tx.shift, tridiag(N, 0, 1, 0)),
+                           ("gradient", tx.gradient, tridiag(N, 1, 0, -1))):
+        allclose(f"qtto_to_matrix({label}({d}))",
+                 tx.qtto_to_matrix(op(d, device=device)), ref)
+    prod = tx.inv_laplacian_DN(d, device=device) @ tx.laplacian_DN(
+        d, device=device)
+    allclose(f"inv_laplacian_DN({d}) @ laplacian_DN({d})",
+             tx.qtto_to_matrix(prod), np.eye(N))
+
+    gen = torch.Generator().manual_seed(QTT_D)
+    x = tx.rand_tt(gen, (2,) * d, rmax=4, normalise=True).to(device)
+    y = tx.fourier_qtto(d, device=device) @ tx.reverse_qtt_bits(x)
+    spec = tx.qtt_to_vector(y)
+    ref = torch.fft.fft(tx.qtt_to_vector(x).to(torch.complex128)) / N ** 0.5
+    rel = float((spec - ref).norm() / ref.norm())
+    held(f"fourier_qtto({d}) @ reverse_qtt_bits(x) vs torch.fft.fft "
+         f"(rel {rel:.3e} <= 1e-10)", rel <= 1e-10,
+         float((spec - ref).abs().max()))
+
+    xs = np.arange(N) / (N - 1)
+    for label, tt, ref in (
+            ("function_to_qtt(sin(pi x) exp(x))",
+             tx.function_to_qtt(lambda t: np.sin(np.pi * t) * np.exp(t), d,
+                                device=device),
+             np.sin(np.pi * xs) * np.exp(xs)),
+            ("qtt_cos(lam=3)", tx.qtt_cos(d, lam=3.0, device=device),
+             np.cos(3.0 * np.pi * xs)),
+            ("qtt_exp(1.3 x - 0.2)", tx.qtt_exp(d, alpha=1.3, beta=-0.2,
+                                                 device=device),
+             np.exp(1.3 * xs - 0.2)),
+            ("qtt_polynom(1 - 2x + x^2/2 + 3x^3)",
+             tx.qtt_polynom([1.0, -2.0, 0.5, 3.0], d, device=device),
+             1 - 2 * xs + 0.5 * xs ** 2 + 3 * xs ** 3)):
+        got = tx.qtt_to_vector(tt)
+        err = float((got - torch.as_tensor(ref, device=device)).abs().max())
+        held(f"{label} at d={d} (atol 1e-12)", err <= 1e-12, err)
+
+    bits = LAP2D_BITS
+    n, h = 2 ** bits, 1.0 / (2 ** bits - 1)
+    t0 = time.perf_counter()
+    L = tx.qtt_laplacian(2, bits, "interleaved", device=device)
+    built = time.perf_counter() - t0
+    q = tx.function_to_qttv(
+        lambda c: np.sin(np.pi * c[..., 0]) * np.sin(np.pi * c[..., 1]), 2,
+        bits, device=device)
+    got = tx.qttv_to_array(L @ q)
+    grid = np.sin(np.pi * np.arange(n) * h)
+    F = grid[:, None] * grid[None, :]
+
+    def dn(v):  # the DN stencil along axis 0, the Neumann row last
+        out = 2 * v
+        out[:-1] -= v[1:]
+        out[1:] -= v[:-1]
+        out[-1] -= v[-1]
+        return out / h ** 2
+
+    allclose(f"qtt_laplacian(2, {bits}) @ function_to_qttv(sin sin) "
+             f"(operator ranks up to {max(L.ranks)}, built in {built:.1f} s "
+             f"on the host)", got, dn(F) + dn(F.T).T)
+
+
+def phase_qtt_path(device):
+    """10: the QTT constructors on the card, the ALS eigensolve (B8), and
+    the MALS linear solve and eigensolve; returns the launch counts of the
+    ALS eigensolve."""
+    from ttnx_torch.core.decomp import ttv_to_tensor
+    from ttnx_torch.entry import (als_eig_problem, dense_xxx_groundstate,
+                                  mals_problem)
+    from ttnx_torch.kernels.dispatch import launch_counts, reset_launch_counts
+    from ttnx_torch.solvers.als_scan import als_eigsolve_scan
+    from ttnx_torch.solvers.mals_scan import (mals_eigsolve_scan,
+                                              mals_linsolve_scan)
+
+    def unit(x):
+        v = ttv_to_tensor(x).reshape(-1).double().cpu().numpy()
+        return v / np.linalg.norm(v)
+
+    def wall(run):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = run()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, out
+
+    timed("10a", constructors_on_card, device)
+
+    # 10b: the ALS eigensolve, f32, B8 on both env stacks of each sweep
+    d, rmax = ALS_EIG
+    E0 = dense_xxx_groundstate(d)
+    p = als_eig_problem(device, d=d, rmax=rmax, dtype=torch.float32)
+
+    def als():
+        return als_eigsolve_scan(p["A"], p["x0"], n_sweeps=ALS_EIG_SWEEPS)
+
+    als_eigsolve_scan(p["A"], p["x0"], n_sweeps=1)  # warm-up
+    reset_launch_counts()
+    with route_log("env_chain_A_fused") as routes:
+        ms, (E, x) = wall(als)
+    counts = launch_counts()
+    want = dict.fromkeys(counts, 0)
+    want["env_chain_A_fused"] = 2 * ALS_EIG_SWEEPS
+    with plain_versions():
+        plain_ms, (Ep, xp) = wall(als)
+    rel = abs(E[-1] - E0) / abs(E0)
+    agree = abs(E[-1] - Ep[-1]) / abs(Ep[-1])
+    overlap = abs(float(unit(x) @ unit(xp)))
+    finite = bool(np.isfinite(E).all())
+    bounded = bool((E >= E0 - 1e-5 * abs(E0)).all())
+    log(f"als_eigsolve d={d} r{rmax} f32: {ms / ALS_EIG_SWEEPS:.3f} "
+        f"ms/sweep | plain {plain_ms / ALS_EIG_SWEEPS:.3f} ms/sweep | E "
+        f"{E[-1]:.9f} dense {E0:.9f} rel {rel:.3e} (<= 1e-5) | min E - E0 "
+        f"{float(E.min() - E0):.3e} | kernel vs plain E rel {agree:.3e} "
+        f"(<= 1e-5) overlap {overlap:.9f} (>= 1 - 1e-4) | B8 launches "
+        f"{counts['env_chain_A_fused']} routes {routes['env_chain_A_fused']}")
+    if not (finite and bounded and rel <= 1e-5 and agree <= 1e-5
+            and overlap >= 1 - 1e-4 and counts == want
+            and routes["env_chain_A_fused"] == ["cluster"] * len(
+                routes["env_chain_A_fused"])):
+        raise RuntimeError(f"als_eigsolve failed its gates: finite={finite} "
+                           f"bounded={bounded} rel={rel:.3e} "
+                           f"agree={agree:.3e} overlap={overlap} launches "
+                           f"{counts} routes {routes}")
+    seen = record_calls(als)
+    for args, kwargs in env_A_inputs(seen):
+        side = " right" if not kwargs.get("left") else " left"
+        hold("env_chain_A_fused", rmax, torch.float32, args, kwargs,
+             tag=f" als{side}")
+        deterministic("env_chain_A_fused", args, kwargs)
+
+    # 10c: the MALS linear solve, f64 (gated), then f32 (reported)
+    d, rmax = MALS_LIN
+    for dtype in (torch.float64, torch.float32):
+        p = mals_problem(device, d=d, rmax=rmax, dtype=dtype)
+        torch.cuda.reset_peak_memory_stats()
+        ms, x = wall(lambda: mals_linsolve_scan(p["A"], p["b"], p["x0"],
+                                                tol=1e-12, rmax=rmax))
+        u = ttv_to_tensor(p["u"]).reshape(-1).double()
+        rel = float((ttv_to_tensor(x).reshape(-1).double() - u).norm()
+                    / u.norm())
+        gate = dtype == torch.float64
+        log(f"mals_linsolve d={d} rmax={rmax} {str(dtype)[6:]}: {ms:.1f} "
+            f"ms/sweep | rel err to u_sin {rel:.3e}"
+            f"{' (<= 1e-9)' if gate else ' (reported, no gate)'} | realized "
+            f"ranks {list(x.ranks)} | peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        if gate and not rel <= 1e-9:
+            raise RuntimeError(f"mals_linsolve f64 rel err {rel:.3e} > 1e-9")
+
+    # 10d: the MALS eigensolve, f32
+    d, rmax = MALS_EIG
+    E0 = dense_xxx_groundstate(d)
+    p = als_eig_problem(device, d=d, rmax=rmax, dtype=torch.float32)
+    ms, (E, x) = wall(lambda: mals_eigsolve_scan(p["A"], p["x0"], rmax=rmax,
+                                                 n_sweeps=2))
+    rel = abs(E[-1] - E0) / abs(E0)
+    log(f"mals_eigsolve d={d} rmax={rmax} f32: {ms / 2:.1f} ms/sweep | E "
+        f"{E[-1]:.9f} dense {E0:.9f} rel {rel:.3e} (<= 1e-5) | realized "
+        f"ranks {list(x.ranks)}")
+    if not (np.isfinite(E).all() and rel <= 1e-5):
+        raise RuntimeError(f"mals_eigsolve rel err {rel:.3e} > 1e-5")
+    return counts
+
+
 def summarize(rows, path_rows, counts):
     """One JSON row per kernel at the type and rank where its path runs
     it: f32 at rank 64 (B3, B9, B10 at 16; B5 and B6, right, at B =
@@ -1704,7 +1942,7 @@ def main() -> int:
               timed("8", phase_convection_path, device)]
     contraction_counts, path_rows = timed("9", phase_contraction_path,
                                           device)
-    later.append(contraction_counts)
+    later += [contraction_counts, timed("10", phase_qtt_path, device)]
     for path_counts in later:
         for name, n in path_counts.items():
             if name not in CN_KERNELS:

@@ -33,15 +33,22 @@ B1 on both of its routes: ``grid`` (f32 at RB = 64, 128, 256, one
 cooperative launch; two launches bit-identical) and ``staged`` (f64 at
 those RB, f32 at RB = 96 and the ragged shapes). B8 likewise: ``cluster``
 (f32 at R = 64, 32, 16 with RA = 5; two launches bit-identical) and
-``staged`` (f64, RA = 4).
+``staged`` (f64, RA = 4). The ALS eigensolve's two env stacks a sweep go
+through B8: route ``cluster`` on the XXX chain in f32 at d = 12, R = 32
+(energy within 1e-5 of the dense ground energy), ``staged`` on the
+Laplacian (RA = 3) and in f64 (energies within 1e-4, f32, and 1e-10, f64,
+of the largest of the same solve on the CPU in f64). One MALS sweep on the card
+gives the CPU's realized ranks and state (1e-10, f64).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from ttnx_torch.entry import (batched_als_problem, flat_spectrum_stack,
-                              norm_keeping_contraction_problem,
+from ttnx_torch.core.decomp import ttv_to_tensor
+from ttnx_torch.entry import (als_eig_problem, batched_als_problem,
+                              dense_xxx_groundstate, flat_spectrum_stack,
+                              mals_problem, norm_keeping_contraction_problem,
                               norm_keeping_matmul_problem)
 from ttnx_torch.kernels.contraction import (chain_route, matmul_chain,
                                             matmul_chain_plain,
@@ -73,7 +80,10 @@ from ttnx_torch.kernels.local_cg_mf import (cg_matfree_batched_plain,
                                             cg_matfree_fused,
                                             cg_matfree_fused_batched,
                                             cg_matfree_plain, matfree_route)
+from ttnx_torch.ops.operators import laplacian
+from ttnx_torch.solvers import als_scan
 from ttnx_torch.solvers.als_scan import rank_masks
+from ttnx_torch.solvers.mals_scan import mals_linsolve_scan
 
 DTYPES = [torch.float32, torch.float64]
 
@@ -836,3 +846,69 @@ def test_merge_resplit_chain_kernel_norm_keeping(cuda, B, r, n):
     got, ref, a = got.float(), ref.float(), p["a"].float()
     assert float((got - ref).norm() / ref.norm()) <= 1e-3
     assert abs(float(got.norm() / a.norm()) - 1.0) <= 1e-2
+
+
+def _env_A_routes(monkeypatch):
+    """Every B8 call of the ALS eigensweeps appends the route its launch
+    took."""
+    routes = []
+
+    def call(*args, **kwargs):
+        out = env_chain_A_fused(*args, **kwargs)
+        routes.append(env_chain_A_fused.route)
+        return out
+
+    monkeypatch.setattr(als_scan, "env_chain_A_fused", call)
+    return routes
+
+
+@pytest.mark.cuda
+def test_als_eigsolve_on_route_cluster(cuda, monkeypatch):
+    """The XXX chain (RA = 5) in f32 at d = 12, R = 32: two B8 launches a
+    sweep, both on route cluster, and the ground energy within 1e-5."""
+    p = als_eig_problem(cuda, d=12, rmax=32, dtype=torch.float32)
+    routes = _env_A_routes(monkeypatch)
+    before = env_chain_A_fused.launches
+    E, x = als_scan.als_eigsolve_scan(p["A"], p["x0"], n_sweeps=1)
+    assert env_chain_A_fused.launches == before + 2
+    assert routes == ["cluster", "cluster"]
+    E0 = dense_xxx_groundstate(12)
+    assert np.isfinite(E).all() and abs(E[-1] - E0) <= 1e-5 * abs(E0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,op", [(torch.float32, "laplacian"),
+                                      (torch.float64, "xxx")])
+def test_als_eigsolve_on_route_staged(cuda, monkeypatch, dtype, op):
+    """The Laplacian (RA = 3) in f32 and the XXX chain in f64 take route
+    staged; the energies match the same solve on the CPU in f64."""
+    d, R = 8, 16
+    p = als_eig_problem(torch.device("cpu"), d=d, rmax=R,
+                        dtype=torch.float64)
+    A = laplacian(d, device=torch.device("cpu")) if op == "laplacian" \
+        else p["A"]
+    E_cpu, _ = als_scan.als_eigsolve_scan(A, p["x0"], n_sweeps=2)
+    routes = _env_A_routes(monkeypatch)
+    E, _ = als_scan.als_eigsolve_scan(A.astype(dtype).to(cuda),
+                                      p["x0"].astype(dtype).to(cuda),
+                                      n_sweeps=2)
+    assert routes == ["staged"] * 4
+    tol = 1e-10 if dtype == torch.float64 else 1e-4
+    assert np.max(np.abs(E - E_cpu)) <= tol * np.max(np.abs(E_cpu))
+
+
+@pytest.mark.cuda
+def test_mals_sweep_on_the_card_matches_the_cpu(cuda):
+    """One MALS sweep in f64 (d = 8, rmax = 16): the realized ranks and the
+    represented state of the CPU run."""
+    cpu = torch.device("cpu")
+    out = []
+    for dev in (cpu, cuda):
+        p = mals_problem(dev, d=8, rmax=16)
+        out.append(mals_linsolve_scan(p["A"], p["b"], p["x0"],
+                                      rmax=p["rmax"]))
+    assert out[0].ranks == out[1].ranks
+    ref = ttv_to_tensor(out[0]).reshape(-1)
+    got = ttv_to_tensor(out[1]).reshape(-1).cpu()
+    err = min(float((got - ref).norm()), float((got + ref).norm()))
+    assert err <= 1e-10 * float(ref.norm())

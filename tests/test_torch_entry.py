@@ -13,7 +13,7 @@ import torch
 
 from ttnx_torch import entry
 from ttnx_torch.core import decomp, tt
-from ttnx_torch.ops import operators, qtt
+from ttnx_torch.ops import fourier, interpolation, operators, qtt
 from ttnx_torch.solvers import als_scan
 from ttnx_torch.utils import convert
 
@@ -69,13 +69,52 @@ CONSTRUCTORS = [
     (operators.xxx_tto, (3,)),
     (operators.xy_tto, (3,)),
     (qtt.qtt_sin, (4,)),
+    (operators.shift, (3,)),
+    (operators.gradient, (3,)),
+    (operators.laplacian, (3,)),
+    (operators.laplacian_DN, (4,)),
+    (operators.laplacian_ND, (4,)),
+    (operators.laplacian_NN, (4,)),
+    (operators.laplacian_P, (4,)),
+    (operators.inv_laplacian_DN, (3,)),
+    (operators.qtto_prolongation, (3,)),
+    (operators.qtto_constant_prolongation, (3,)),
+    (operators.qtto_linear_prolongation, (3,)),
+    (operators.qtt_laplacian, (2, 4)),
+    (qtt.function_to_tensor, (np.sin, 3)),
+    (qtt.function_to_qtt, (np.sin, 3)),
+    (qtt.function_to_qtt_uniform, (np.sin, 3)),
+    (qtt.qtt_polynom, ([1.0, 2.0], 3)),
+    (qtt.qtt_cos, (3,)),
+    (qtt.qtt_exp, (3,)),
+    (qtt.qtt_chebyshev, (2, 3)),
+    (qtt.qtt_basis_vector, (3, 5)),
+    (qtt.qtt_trapezoidal, (3,)),
+    (qtt.function_to_qttv, (lambda c: c[..., 0] * c[..., 1], 2, 2)),
+    (fourier.fourier_qtto, (3,)),
+    (interpolation.interpolating_qtt, (np.sin, 3, 4)),
+    (interpolation.lagrange_rank_revealing, (np.sin, 3, 4)),
 ]
+
+# functions of ttnx_torch.ops that build nothing from scratch: host-side
+# grid maps and numpy helpers, and transforms of TT objects or tensors the
+# caller already placed
+NO_DEVICE = {"pauli_matrix", "gauss_chebyshev_lobatto", "index_to_point",
+             "tuple_to_index", "tensor_to_grid", "qtt_to_function",
+             "qtt_to_vector", "qtto_to_matrix", "to_qtt", "to_ttv",
+             "QTTVector", "QTTOperator", "check_compat", "reorder",
+             "reorder_vec", "reorder_op", "qttv_to_array",
+             "reverse_qtt_bits", "cheb_lobatto_lagrange"}
 
 
 def test_constructors_cover_the_public_ops():
     named = {fn.__name__ for fn, _ in CONSTRUCTORS}
-    assert set(operators.__all__) - {"pauli_matrix"} <= named
-    assert set(qtt.__all__) <= named
+    for mod in (operators, qtt, fourier, interpolation):
+        assert set(mod.__all__) - NO_DEVICE <= named, mod.__name__
+        for name in set(mod.__all__) & NO_DEVICE:
+            fn = getattr(mod, name)
+            if callable(fn) and not isinstance(fn, type):
+                assert "device" not in inspect.signature(fn).parameters
 
 
 # the core constructors, the masks and the numpy bridge, likewise
@@ -90,12 +129,23 @@ CORE_CONSTRUCTORS = [
     (convert.ttvector_from_numpy, ([np.ones((1, 2, 1))],)),
     (convert.ttoperator_from_numpy, ([np.ones((1, 2, 2, 1))],)),
     (convert.stack_from_numpy, (np.ones((2, 3)),)),
+    (convert.qttvector_from_numpy, ([np.ones((1, 2, 1))] * 2, 2, 1,
+                                    "serial")),
+    (convert.qttoperator_from_numpy, ([np.ones((1, 2, 2, 1))] * 2, 1, 2,
+                                      "serial")),
+    # the entry builders of slice 13, at their default sizes
+    (entry.als_eig_problem, ()),
+    (entry.mals_problem, ()),
 ]
 
 
 def _devices(out):
-    return [out.device] if torch.is_tensor(out) else [c.device
-                                                      for c in out.cores]
+    if torch.is_tensor(out):
+        return [out.device]
+    if isinstance(out, dict):
+        return [d for v in out.values() if not isinstance(v, int)
+                for d in _devices(v)]
+    return [c.device for c in out.cores]
 
 
 @pytest.mark.parametrize("fn,args", CONSTRUCTORS + CORE_CONSTRUCTORS,
@@ -104,8 +154,13 @@ def _devices(out):
 def test_ops_constructor_needs_a_device(fn, args):
     """No default device: a call without one raises TypeError, and the
     cores land where the caller says."""
-    param = inspect.signature(fn).parameters["device"]
-    assert param.kind is inspect.Parameter.KEYWORD_ONLY
+    params = inspect.signature(fn).parameters
+    param = params["device"]
+    if fn.__module__ == entry.__name__:
+        # entry builders take the device first, as every entry point does
+        assert next(iter(params)) == "device"
+    else:
+        assert param.kind is inspect.Parameter.KEYWORD_ONLY
     assert param.default is inspect.Parameter.empty
     with pytest.raises(TypeError):
         fn(*args)

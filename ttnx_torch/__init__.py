@@ -2,9 +2,12 @@
 CUDA (NVIDIA Hopper).
 
 The port of ``ttnx`` (JAX) slice by slice: the Crank–Nicolson QTT heat
-step, the batched ALS, the DMRG and TDVP scan tier, and the last kernels
+step, the batched ALS, the DMRG and TDVP scan tier, the last kernels
 (dense-K BiCGStab behind ``solver='bicgstab_fused'``, the batched core
-contractions of ``ttnx_torch.kernels.contraction``). Layouts match
+contractions of ``ttnx_torch.kernels.contraction``), the QTT constructor
+library (operators, function encodings, multi-dimensional QTT wrappers,
+the quantics Fourier transform, interpolation) and the scan-tier ALS
+eigensolve and MALS. Layouts match
 ``ttnx``: vector cores ``(r_left, n, r_right)``, operator cores
 ``(r_left, n_out, n_in, r_right)``, padded stacks ``(d, R, n, R)`` / ``(d,
 RA, n, n, RA)``, masks ``(d+1, R)``, big-endian bits. Every device is
@@ -18,22 +21,46 @@ from ttnx_torch.core.decomp import ttv_decomp, ttv_to_tensor
 from ttnx_torch.core.tt import (TTOperator, TTVector, id_tto, r_and_d_to_rks,
                                 rand_tt, zeros_tt)
 from ttnx_torch.kernels.dispatch import launch_counts, reset_launch_counts
-from ttnx_torch.ops.operators import (H_mu, H_munu, heisenberg_xyz_tto,
-                                      ising_tto, pauli_matrix,
+from ttnx_torch.ops.fourier import fourier_qtto, reverse_qtt_bits
+from ttnx_torch.ops.interpolation import (interpolating_qtt,
+                                          lagrange_rank_revealing)
+from ttnx_torch.ops.operators import (H_mu, H_munu, gradient,
+                                      heisenberg_xyz_tto, inv_laplacian_DN,
+                                      ising_tto, laplacian, laplacian_DN,
+                                      laplacian_ND, laplacian_NN,
+                                      laplacian_P, pauli_matrix,
                                       pauli_pair_sum_tto, pauli_sum_tto,
+                                      qtt_laplacian,
+                                      qtto_constant_prolongation,
+                                      qtto_linear_prolongation,
+                                      qtto_prolongation, shift,
                                       toeplitz_to_qtto, xxx_tto, xxz_tto,
-                                      xy_tto)
-from ttnx_torch.ops.qtt import qtt_sin
+                                      xy_tto, Δ, Δ_DN, Δ_ND, Δ_NN, Δ_P)
+from ttnx_torch.ops.qtt import (QTTOperator, QTTVector, check_compat,
+                                function_to_qtt, function_to_qtt_uniform,
+                                function_to_qttv, function_to_tensor,
+                                gauss_chebyshev_lobatto, index_to_point,
+                                qtt_basis_vector, qtt_chebyshev, qtt_cos,
+                                qtt_exp, qtt_polynom, qtt_sin,
+                                qtt_to_function, qtt_to_vector,
+                                qtt_trapezoidal, qtto_to_matrix,
+                                qttv_to_array, reorder, tensor_to_grid,
+                                to_qtt, to_ttv, tuple_to_index)
 from ttnx_torch.parallel.batch import (batched_als_sweeps,
                                        batched_dmrg_eig_sweeps,
                                        batched_tdvp1_steps,
                                        batched_tdvp2_steps)
-from ttnx_torch.solvers.als_scan import (als_linsolve_scan, als_sweeps,
+from ttnx_torch.solvers.als_scan import (als_eigsolve_scan,
+                                         als_eigsolve_sweeps,
+                                         als_linsolve_scan, als_sweeps,
                                          pack_op, pack_tt, rank_masks,
                                          unpack_tt)
 from ttnx_torch.solvers.dmrg_scan import (cut_off_mask, dmrg_eig_sweep,
                                           dmrg_eigsolve_scan,
                                           dmrg_linsolve_scan, dmrg_sweep)
+from ttnx_torch.solvers.mals_scan import (mals_eig_sweep,
+                                          mals_eigsolve_scan,
+                                          mals_linsolve_scan, mals_sweep)
 from ttnx_torch.solvers.round_scan import (cn_step, make_cn_evolve,
                                            make_cn_step, matvec_padded,
                                            tt_round_gram, tt_round_scan)
@@ -54,5 +81,19 @@ __all__ = [
     "dmrg_eig_sweep", "dmrg_sweep", "dmrg_eigsolve_scan",
     "dmrg_linsolve_scan", "tdvp1_step", "tdvp2_step", "tdvp1_scan",
     "tdvp2_scan", "batched_als_sweeps", "batched_dmrg_eig_sweeps",
-    "batched_tdvp1_steps", "batched_tdvp2_steps",
+    "batched_tdvp1_steps", "batched_tdvp2_steps", "shift", "gradient",
+    "laplacian", "laplacian_DN", "laplacian_ND", "laplacian_NN",
+    "laplacian_P", "inv_laplacian_DN", "qtto_prolongation",
+    "qtto_constant_prolongation", "qtto_linear_prolongation",
+    "qtt_laplacian", "Δ", "Δ_DN", "Δ_ND", "Δ_NN", "Δ_P",
+    "gauss_chebyshev_lobatto", "index_to_point", "tuple_to_index",
+    "function_to_tensor", "tensor_to_grid", "function_to_qtt",
+    "function_to_qtt_uniform", "qtt_to_function", "qtt_to_vector",
+    "qtt_polynom", "qtt_cos", "qtt_exp", "qtt_chebyshev",
+    "qtt_basis_vector", "qtt_trapezoidal", "qtto_to_matrix", "to_qtt",
+    "to_ttv", "QTTVector", "QTTOperator", "check_compat", "reorder",
+    "function_to_qttv", "qttv_to_array", "fourier_qtto",
+    "reverse_qtt_bits", "interpolating_qtt", "lagrange_rank_revealing",
+    "als_eigsolve_sweeps", "als_eigsolve_scan", "mals_sweep",
+    "mals_linsolve_scan", "mals_eig_sweep", "mals_eigsolve_scan",
 ]

@@ -28,6 +28,12 @@ and its matmul ceiling (B12) as ``bench.py`` does;
 ``norm_keeping_matmul_problem(device)`` are chain inputs whose iterate
 keeps its norm, so B11 and B12 can be held to their plain versions at the
 bench's 2048 and 1024 iterations.
+
+``als_eig_problem(device)`` is the ALS eigensolve workload (the open XXX
+chain from a seeded orthonormal start at the buffer rank, for
+``als_eigsolve_scan`` and ``mals_eigsolve_scan``) and
+``mals_problem(device)`` the MALS linear solve (the Dirichlet Laplacian
+with the right-hand side of a sampled sine, which is the exact solution).
 """
 
 from __future__ import annotations
@@ -39,8 +45,9 @@ import numpy as np
 from ttnx_torch.core.algebra import add_op, scale_op
 from ttnx_torch.core.canonical import tt_round
 from ttnx_torch.core.tt import TTVector, id_tto, r_and_d_to_rks, rand_tt
-from ttnx_torch.ops.operators import heisenberg_xyz_tto, toeplitz_to_qtto
-from ttnx_torch.ops.qtt import qtt_sin
+from ttnx_torch.ops.operators import (heisenberg_xyz_tto, laplacian,
+                                      toeplitz_to_qtto)
+from ttnx_torch.ops.qtt import function_to_qtt, qtt_sin
 from ttnx_torch.solvers.als_scan import pack_op, pack_tt, rank_masks
 from ttnx_torch.solvers.round_scan import make_cn_step
 
@@ -50,7 +57,8 @@ __all__ = ["entry", "flagship_cn_step", "three_mode_state",
            "convection_cn_step",
            "convection_cn_operators", "dense_cn_reference",
            "contraction_problem", "norm_keeping_contraction_problem",
-           "matmul_ceiling_problem", "norm_keeping_matmul_problem"]
+           "matmul_ceiling_problem", "norm_keeping_matmul_problem",
+           "als_eig_problem", "mals_problem"]
 
 
 def flagship_cn_step(device, rmax: int = 16, d: int = 12, h: float = 1e-9,
@@ -146,6 +154,41 @@ def dmrg_problem(device, *, d: int = 10, rmax: int = 16,
     return dict(A_stack=pack_op(H, max(H.ranks)), x_stack=pack_tt(x0, rmax),
                 masks=rank_masks(x0.ranks, rmax, dtype=dtype, device=device),
                 tol=1e-8, degen_tol=1e-8)
+
+
+def _seeded_start(seed: int, d: int, rank: int, **kw) -> TTVector:
+    """A normalized random TT of rank ``rank`` from a CPU
+    ``torch.Generator`` seeded ``seed`` (float64, on the CPU)."""
+    return rand_tt(torch.Generator().manual_seed(seed), (2,) * d,
+                   rmax=rank, normalise=True, **kw)
+
+
+def als_eig_problem(device, *, d: int = 12, rmax: int = 32,
+                    dtype=torch.float32, seed: int = 3):
+    """The ALS eigensolve workload on ``device``: the open XXX chain
+    (Pauli convention, MPO rank 5) as ``A`` and a random left-orthonormal
+    start of rank ``rmax`` (feasibility-clamped, seeded ``seed``) as
+    ``x0``, both in ``dtype``. ``entry.dense_xxx_groundstate(d)`` is its
+    oracle. Returns a dict of ``A``, ``x0`` and ``rmax``."""
+    H = heisenberg_xyz_tto(d, device=device).astype(dtype)
+    x0 = _seeded_start(seed, d, rmax, orthogonal=True)
+    return dict(A=H, x0=x0.astype(dtype).to(device), rmax=rmax)
+
+
+def mals_problem(device, *, d: int = 12, rmax: int = 64,
+                 dtype=torch.float64, seed: int = 3):
+    """The MALS linear-solve workload on ``device``: ``A`` the Dirichlet
+    Laplacian ``toeplitz(2, -1, -1)``, ``u`` the sampled ``sin(pi x)`` on
+    the uniform grid of [0, 1] (rank 2), ``b = A u`` (built in float64),
+    and a random rank-4 start ``x0`` seeded ``seed``, all in ``dtype``;
+    ``u`` is the exact solution. Returns a dict of those four and
+    ``rmax``, the buffer rank (64, the default, at d = 12)."""
+    A = laplacian(d, device=device)
+    u = function_to_qtt(lambda x: np.sin(np.pi * x), d, device=device)
+    x0 = _seeded_start(seed, d, 4)
+    return dict(A=A.astype(dtype), u=u.astype(dtype),
+                b=(A @ u).astype(dtype), x0=x0.astype(dtype).to(device),
+                rmax=rmax)
 
 
 def dense_xxx_groundstate(d: int) -> float:

@@ -1,5 +1,6 @@
-"""QTT operator constructors: the Toeplitz stencil and the spin-chain
-Hamiltonians.
+"""QTT operator constructors: Toeplitz stencils, the Laplacian
+boundary-condition family, prolongations, spin-chain Hamiltonians and the
+multi-dimensional QTT Laplacian.
 
 Cores are small structured constants assembled with numpy and moved once
 to the device the caller names: ``device`` is a required keyword of
@@ -12,15 +13,25 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ttnx_torch.core.tt import TTOperator
+from ttnx_torch.core.algebra import add_op, kron_tto, scale_op
+from ttnx_torch.core.tt import TTOperator, id_tto
+from ttnx_torch.ops.qtt import QTTOperator, reorder_op
 
-__all__ = ["toeplitz_to_qtto", "pauli_matrix", "pauli_sum_tto",
-           "pauli_pair_sum_tto", "H_mu", "H_munu", "heisenberg_xyz_tto",
-           "ising_tto", "xxz_tto", "xxx_tto", "xy_tto"]
+__all__ = ["toeplitz_to_qtto", "shift", "gradient", "laplacian",
+           "laplacian_DN", "laplacian_ND", "laplacian_NN", "laplacian_P",
+           "inv_laplacian_DN", "qtto_prolongation",
+           "qtto_constant_prolongation", "qtto_linear_prolongation",
+           "pauli_matrix", "pauli_sum_tto", "pauli_pair_sum_tto", "H_mu",
+           "H_munu", "heisenberg_xyz_tto", "ising_tto", "xxz_tto", "xxx_tto",
+           "xy_tto", "qtt_laplacian"]
 
 _ID = np.eye(2)
 _J = np.array([[0.0, 1.0], [0.0, 0.0]])  # superdiagonal shift block
 _JT = _J.T
+_I1 = np.array([[1.0, 0.0], [0.0, 0.0]])
+_I2 = np.array([[0.0, 0.0], [0.0, 1.0]])
+_E = np.ones((2, 2))
+_F64 = torch.float64
 
 
 def _op(blocks, dtype, *, device) -> TTOperator:
@@ -53,6 +64,152 @@ def toeplitz_to_qtto(alpha, beta, gamma, d: int, *, dtype=torch.float64,
         return _op([[[alpha * _ID + beta * _J + gamma * _JT]]], dtype,
                    device=device)
     return _op([first] + [mid] * (d - 2) + [last], dtype, device=device)
+
+
+def shift(d: int, *, device) -> TTOperator:
+    """The superdiagonal shift ``toeplitz(0, 1, 0)``."""
+    return toeplitz_to_qtto(0, 1, 0, d, device=device)
+
+
+def gradient(d: int, *, device) -> TTOperator:
+    """Gradient stencil ``toeplitz(1, 0, -1)``."""
+    return toeplitz_to_qtto(1, 0, -1, d, device=device)
+
+
+def laplacian(d: int, *, device) -> TTOperator:
+    """Dirichlet–Dirichlet Laplacian ``toeplitz(2, -1, -1)``."""
+    return toeplitz_to_qtto(2, -1, -1, d, device=device)
+
+
+def _bc_laplacian(d: int, corner, device) -> TTOperator:
+    """Rank-4 Laplacian whose fourth bond carries the boundary block
+    ``corner`` (``_I2``: Dirichlet–Neumann, ``_I1``: Neumann–Dirichlet)."""
+    if d < 4:
+        raise ValueError("Dimension must be at least 4")
+    first = [[_ID, _JT, _J, corner]]
+    mid = [[_ID, _JT, _J, 0], [0, _J, 0, 0], [0, 0, _JT, 0],
+           [0, 0, 0, corner]]
+    last = [[2 * _ID - _J - _JT], [-_J], [-_JT], [-corner]]
+    return _op([first] + [mid] * (d - 2) + [last], _F64, device=device)
+
+
+def laplacian_DN(d: int, *, device) -> TTOperator:
+    """Dirichlet–Neumann Laplacian, rank 4."""
+    return _bc_laplacian(d, _I2, device)
+
+
+def laplacian_ND(d: int, *, device) -> TTOperator:
+    """Neumann–Dirichlet Laplacian, rank 4."""
+    return _bc_laplacian(d, _I1, device)
+
+
+def laplacian_NN(d: int, *, device) -> TTOperator:
+    """Neumann–Neumann Laplacian, rank 5 with rank-1 boundaries."""
+    if d < 4:
+        raise ValueError("Dimension must be at least 4")
+    first = [[_ID, _JT, _J, _I2, _I1]]
+    mid = [
+        [_ID, _JT, _J, 0, 0],
+        [0, _J, 0, 0, 0],
+        [0, 0, _JT, 0, 0],
+        [0, 0, 0, _I2, 0],
+        [0, 0, 0, 0, -_I1],
+    ]
+    last = [[2 * _ID - _J - _JT], [-_J], [-_JT], [-_I2], [-_I1]]
+    return _op([first] + [mid] * (d - 2) + [last], _F64, device=device)
+
+
+def laplacian_P(d: int, *, device) -> TTOperator:
+    """Periodic Laplacian, rank 5."""
+    if d < 4:
+        raise ValueError("Dimension must be at least 4")
+    first = [[_ID, _JT, _J, _J, _JT]]
+    mid = [
+        [_ID, _JT, _J, 0, 0],
+        [0, _J, 0, 0, 0],
+        [0, 0, _JT, 0, 0],
+        [0, 0, 0, _J, 0],
+        [0, 0, 0, 0, _JT],
+    ]
+    last = [[2 * _ID - _J - _JT], [-_J], [-_JT], [-_J], [-_JT]]
+    return _op([first] + [mid] * (d - 2) + [last], _F64, device=device)
+
+
+def inv_laplacian_DN(d: int, *, device) -> TTOperator:
+    """Exact inverse of the Dirichlet–Neumann Laplacian, rank 4."""
+    if d < 2:
+        raise ValueError("Dimension must be at least 2")
+    first = [[_ID, _I2, _J, _JT]]
+    mid = [
+        [_ID, _I2, _J, _JT],
+        [0, 2 * _E, 0, 0],
+        [0, _I2 + _JT, _E, 0],
+        [0, _I2 + _J, 0, _E],
+    ]
+    last = [[_E + _I2], [2 * _E], [_E + _I2 + _JT], [_E + _I2 + _J]]
+    return _op([first] + [mid] * (d - 2) + [last], _F64, device=device)
+
+
+def qtto_prolongation(d: int, *, device) -> TTOperator:
+    """Multigrid prolongation, rank 2; its last core is filled entry by
+    entry."""
+    if d < 2:
+        raise ValueError("Dimension must be at least 2")
+    first = [[0.5 * _ID, 0.5 * _JT]]
+    mid = [[_ID, _JT], [0, _J]]
+    last = np.zeros((2, 2, 2, 1))
+    last[0, 0, 0, 0] = 1.0
+    last[0, 1, 0, 0] = 2.0
+    last[0, 0, 1, 0] = 1.0
+    head = _op([first] + [mid] * (d - 2), _F64, device=device)
+    return TTOperator(list(head.cores)
+                      + [torch.as_tensor(last, device=device)])
+
+
+def qtto_constant_prolongation(d: int, *, device) -> TTOperator:
+    """Constant prolongation from d to d+1 binary sites: identity cores and
+    a ones-core with a singleton input dim."""
+    if d < 1:
+        raise ValueError("Dimension must be at least 1")
+    cores = list(id_tto(d, device=device).cores)
+    cores.append(torch.ones((1, 2, 1, 1), dtype=_F64, device=device))
+    return TTOperator(cores)
+
+
+def qtto_linear_prolongation(d: int, *, device) -> TTOperator:
+    """Linear prolongation from d to d+1 binary sites: the identity branch
+    and the ``0.5 (I + shift)`` branch side by side, closed by a
+    rectangular selector core (bit 0: identity, bit 1: average). Built on
+    the host, then moved to ``device``."""
+    if d < 1:
+        raise ValueError("Dimension must be at least 1")
+    host = torch.device("cpu")
+    ident = id_tto(d, device=host)
+    if d == 1:
+        average = TTOperator([torch.tensor([[1.0, 1.0], [0.0, 1.0]],
+                                           dtype=_F64).mul(0.5)
+                              .reshape(1, 2, 2, 1)])
+    else:
+        average = add_op(scale_op(0.5, ident), scale_op(0.5, shift(
+            d, device=host)))
+    ir, ar = ident.ranks, average.ranks
+    cores = []
+    for k in range(d):
+        rl = 1 if k == 0 else ir[k] + ar[k]
+        core = np.zeros((rl, 2, 2, ir[k + 1] + ar[k + 1]))
+        ic, ac = ident.cores[k].numpy(), average.cores[k].numpy()
+        if k == 0:
+            core[0:1, :, :, : ir[1]] = ic
+            core[0:1, :, :, ir[1]:] = ac
+        else:
+            core[: ir[k], :, :, : ir[k + 1]] = ic
+            core[ir[k]:, :, :, ir[k + 1]:] = ac
+        cores.append(core)
+    last = np.zeros((ir[d] + ar[d], 2, 1, 1))
+    last[: ir[d], 0, 0, 0] = 1.0  # identity branch -> even points (bit 0)
+    last[ir[d]:, 1, 0, 0] = 1.0  # average branch -> odd points (bit 1)
+    cores.append(last)
+    return TTOperator([torch.as_tensor(c, device=device) for c in cores])
 
 
 # ---------------------------------------------------------------------------
@@ -180,3 +337,59 @@ def xy_tto(d: int, jx=1.0, jy=1.0, h=0.0, field="z", *,
            device) -> TTOperator:
     return heisenberg_xyz_tto(d, jx=jx, jy=jy, jz=0.0, lam=h, field=field,
                               device=device)
+
+
+# ---------------------------------------------------------------------------
+# Multi-dimensional QTT Laplacian
+# ---------------------------------------------------------------------------
+
+# aliases of the reference's exported names (``∇`` and ``Δ⁻¹_DN`` are not
+# Python identifiers: use ``gradient`` and ``inv_laplacian_DN``)
+Δ = laplacian
+Δ_DN = laplacian_DN
+Δ_ND = laplacian_ND
+Δ_NN = laplacian_NN
+Δ_P = laplacian_P
+
+_BC_BUILDERS = {"DD": laplacian, "DN": laplacian_DN, "ND": laplacian_ND,
+                "NN": laplacian_NN}
+
+
+def qtt_laplacian(n_dims: int, bits_per_dim: int,
+                  ordering: str = "interleaved", a: float = 0.0,
+                  b: float = 1.0, bc: str = "DN", *, device) -> QTTOperator:
+    """n-D Laplacian as a Kronecker sum of 1-D operators of boundary
+    condition ``bc`` with ``1/h^2`` scaling, as a ``QTTOperator`` (the NN
+    operator's rank-1 boundaries let ``bc='NN'`` work for ``n_dims > 1``).
+    Built on the host, the interleaved order by the SVD swaps of
+    ``reorder_op``, whose default threshold 0 keeps every singular value
+    (ranks up to 5120 at ``n_dims = 2``, ``bits_per_dim = 10``), then moved
+    to ``device``."""
+    if ordering not in ("interleaved", "serial"):
+        raise ValueError("ordering must be 'interleaved' or 'serial'")
+    if n_dims < 1:
+        raise ValueError("n_dims must be at least 1")
+    if bc not in _BC_BUILDERS:
+        raise ValueError("bc must be 'DD', 'DN', 'ND', or 'NN'")
+    d = bits_per_dim
+    h = (b - a) / (2 ** d - 1)
+    scl = 1.0 / h ** 2
+    host = torch.device("cpu")
+    lap_1d = _BC_BUILDERS[bc](d, device=host)
+    eye_1d = id_tto(d, device=host)
+    if n_dims == 1:
+        return QTTOperator(scale_op(scl, lap_1d), 1, d, ordering).to(device)
+
+    def term(k: int) -> TTOperator:
+        out = lap_1d if k == 0 else eye_1d
+        for dim in range(1, n_dims):
+            out = kron_tto(out, lap_1d if dim == k else eye_1d)
+        return out
+
+    result = scale_op(scl, term(0))
+    for k in range(1, n_dims):
+        result = add_op(result, scale_op(scl, term(k)))
+    out = QTTOperator(result, n_dims, d, "serial")
+    if ordering == "interleaved":
+        out = reorder_op(out, "interleaved")
+    return out.to(device)

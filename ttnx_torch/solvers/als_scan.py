@@ -1,4 +1,4 @@
-"""Padded-rank ALS linear solve — the linear-solve half of the scan tier.
+"""Padded-rank ALS: the linear solve and the eigensolve of the scan tier.
 
 Cores are stacked dense tensors ``x (d, R, n, R)`` padded to a uniform
 ``rmax``; TT ranks enter only through 0/1 masks ``(d+1, R)``. Every padded
@@ -10,8 +10,10 @@ The environment stacks go through kernel B2
 (:mod:`ttnx_torch.kernels.env_chain`), the rank <= 16 local CG through B3
 and BiCGStab through B10 (:mod:`ttnx_torch.kernels.local_cg`) and larger
 local CG through B4 (:mod:`ttnx_torch.kernels.local_cg_mf`) for real
-dtypes; each wrapper runs its Hopper kernel on CUDA tensors and its plain
-version on CPU tensors.
+dtypes; the eigensweeps' operator-only env stacks go through B8
+(:func:`ttnx_torch.kernels.env_chain.env_chain_A_fused`) for real dtypes,
+and their local ``eigh`` and QR stay ``torch.linalg``. Each wrapper runs its
+Hopper kernel on CUDA tensors and its plain version on CPU tensors.
 """
 
 from __future__ import annotations
@@ -22,7 +24,9 @@ import torch
 from ttnx_torch.core.canonical import orthogonalize
 from ttnx_torch.core.tt import TTOperator, TTVector
 from ttnx_torch.kernels.dispatch import can_fuse_local_cg
-from ttnx_torch.kernels.env_chain import (boundary_envs, left_env_b_update,
+from ttnx_torch.kernels.env_chain import (boundary_envs, env_chain_A_fused,
+                                          env_chain_A_plain,
+                                          left_env_b_update,
                                           left_env_chain_fused,
                                           left_env_chain_plain,
                                           left_env_update,
@@ -44,6 +48,8 @@ __all__ = [
     "polar_orth",
     "als_sweeps",
     "als_linsolve_scan",
+    "als_eigsolve_sweeps",
+    "als_eigsolve_scan",
 ]
 
 SOLVERS = ("lu", "cg", "bicgstab", "cg_fused", "bicgstab_fused")
@@ -330,3 +336,124 @@ def als_linsolve_scan(A: TTOperator, b: TTVector, x0: TTVector,
     masks = rank_masks(rks, rmax, dtype=real_dt, device=x_stack.device)
     out = als_sweeps(A_stack, b_stack, x_stack, masks, sweep_count)
     return unpack_tt(out, rks)
+
+
+# ---------------------------------------------------------------------------
+# Eigensolve
+# ---------------------------------------------------------------------------
+
+
+def _local_eig_padded(L, Ac, Renv, m_l, m_r):
+    """Smallest eigenpair of the masked local operator. Padded directions
+    get a diagonal just above the spectral range (``norm(Km) + 1``): a huge
+    constant would cost ``|pad| eps`` of eigh accuracy and break the
+    variational bound."""
+    R, n = L.shape[0], Ac.shape[1]
+    M = R * n * R
+    t = torch.einsum("aWb,WiJw->aibJw", L, Ac)
+    K = torch.einsum("aibJw,cwd->aicbJd", t, Renv).reshape(M, M)
+    maskv = (m_l[:, None, None] * m_r[None, None, :]).expand(R, n,
+                                                             R).reshape(M)
+    Km = K * maskv[:, None] * maskv[None, :]
+    pad = torch.linalg.norm(Km) + 1.0  # > lambda_max of the active block
+    K = Km + torch.diag(pad * (1.0 - maskv))
+    K = 0.5 * (K + K.conj().T)
+    w, U = torch.linalg.eigh(K)
+    return w[0], U[:, 0].reshape(R, n, R)
+
+
+def _forward_eig_half_sweep(x, A, Renvs, masks):
+    """Local eigensolves at sites 0..d-2 moving right; the last site
+    absorbs the pending factor. Returns the stack and the d-1 local
+    eigenvalues in the order computed."""
+    d, R, n, _ = x.shape
+    L, _ = boundary_envs(R, A.shape[1], 1, x.dtype, x.device)
+    T = _e00(R, x.dtype, x.device)
+    cores, lams = [], []
+    for k in range(d - 1):
+        m_r = masks[k + 1]
+        lam, V = _local_eig_padded(L, A[k], Renvs[k + 1], masks[k], m_r)
+        q, r = torch.linalg.qr(V.reshape(R * n, R))
+        core = (q * m_r[None, :]).reshape(R, n, R)
+        T = r * m_r[:, None]
+        L = left_env_update(core, L, A[k])
+        cores.append(core)
+        lams.append(lam)
+    cores.append(torch.einsum("ab,bnc->anc", T, x[d - 1]))
+    return torch.stack(cores), lams
+
+
+def _backward_eig_half_sweep(x, A, Lenvs, masks):
+    """Local eigensolves at sites d-1..1 moving left; site 0 absorbs the
+    final factor."""
+    d, R, n, _ = x.shape
+    Renv, _ = boundary_envs(R, A.shape[1], 1, x.dtype, x.device)
+    T = _e00(R, x.dtype, x.device)
+    cores, lams = [None] * d, []
+    for k in range(d - 1, 0, -1):
+        m_l = masks[k]
+        lam, V = _local_eig_padded(Lenvs[k], A[k], Renv, m_l, masks[k + 1])
+        qt, rt = torch.linalg.qr(V.reshape(R, n * R).T)
+        core = qt.T.reshape(R, n, R) * m_l[:, None, None]
+        T = rt.T * m_l[None, :]
+        Renv = right_env_update(core, A[k], Renv)
+        cores[k] = core
+        lams.append(lam)
+    cores[0] = torch.einsum("anb,bc->anc", x[0], T)
+    return torch.stack(cores), lams
+
+
+def _env_stack_A(x, A, mask_r, left):
+    """Operator-only env stack of the masked state: kernel B8 for real
+    dtypes (it takes no complex), its plain version for complex ones."""
+    xm = (x * mask_r[:, None, None, :]).contiguous()
+    if x.dtype.is_complex:
+        return env_chain_A_plain(xm, A, left=left)
+    return env_chain_A_fused(xm, A, left=left)
+
+
+def _right_env_stack_A(x, A, mask_r):
+    """``Renv[i]`` = env of sites i..d-1, stacked ``(d+1, R, RA, R)``."""
+    return _env_stack_A(x, A, mask_r, left=False)
+
+
+def _left_env_stack_A(x, A, mask_r):
+    """``Lenv[i]`` covers sites 0..i-1."""
+    return _env_stack_A(x, A, mask_r, left=True)
+
+
+def als_eigsolve_sweeps(A_stack, x_stack, masks, n_sweeps: int = 2):
+    """Fixed-rank ALS eigensolver: ``n_sweeps`` full (forward + backward)
+    sweeps, TF32 off; returns ``(x_stack, energies)``, the ``2 (d - 1)``
+    local eigenvalues of each sweep in the order computed. Two B8 launches
+    a sweep for real dtypes."""
+    from ttnx_torch.solvers.round_scan import matmul_precision  # imports us
+
+    x = x_stack
+    lams = []
+    with matmul_precision("highest"):
+        for _ in range(n_sweeps):
+            Renvs = _right_env_stack_A(x, A_stack, masks[1:])
+            x, lams_f = _forward_eig_half_sweep(x, A_stack, Renvs, masks)
+            Lenvs = _left_env_stack_A(x, A_stack, masks[1:])
+            x, lams_b = _backward_eig_half_sweep(x, A_stack, Lenvs, masks)
+            lams += lams_f + lams_b
+    return x, torch.stack(lams)
+
+
+def als_eigsolve_scan(A: TTOperator, x0: TTVector, n_sweeps: int = 2,
+                      rmax: int | None = None):
+    """Scan-tier fixed-rank ALS eigensolve at the ranks of ``x0``; returns
+    ``(E, x)``: every local eigenvalue (host numpy, real) and the state.
+    Both inputs lie on one device."""
+    x = orthogonalize(x0, 0)
+    rks = x.ranks
+    if rmax is None:
+        rmax = max(max(rks), 2)
+    dt = torch.promote_types(A.dtype, x.dtype)
+    A_stack = pack_op(A.astype(dt), max(A.ranks))
+    x_stack = pack_tt(x.astype(dt), rmax)
+    real_dt = torch.empty((), dtype=dt).real.dtype
+    masks = rank_masks(rks, rmax, dtype=real_dt, device=x_stack.device)
+    out, lams = als_eigsolve_sweeps(A_stack, x_stack, masks, n_sweeps)
+    return lams.real.cpu().numpy(), unpack_tt(out, rks)

@@ -97,7 +97,8 @@ def _assemble_K2(L, Ai, Aj, Renv, maskf):
     t = torch.einsum("aWb,WiIw->abiIw", L, Ai)
     t = torch.einsum("abiIw,wjJv->abiIjJv", t, Aj)
     K = torch.einsum("abiIjJv,cvd->aijcbIJd", t, Renv).reshape(M, M)
-    return K * maskf[:, None] * maskf[None, :]
+    # masked in place: at M = 16384 (R = 64) K alone is 2 GB in f64
+    return K.mul_(maskf[:, None]).mul_(maskf[None, :])
 
 
 def _start_vector(v0, maskf):

@@ -11,8 +11,10 @@ import numpy as np
 import torch
 
 from ttnx_torch.core.tt import TTOperator, TTVector
+from ttnx_torch.ops.qtt import QTTOperator, QTTVector
 
 __all__ = ["ttvector_from_numpy", "ttoperator_from_numpy",
+           "qttvector_from_numpy", "qttoperator_from_numpy",
            "stack_from_numpy", "to_numpy"]
 
 
@@ -31,6 +33,25 @@ def ttoperator_from_numpy(cores, ot=None, *, device,
     """TTOperator from a sequence of ``(r_left, n_out, n_in, r_right)``
     arrays."""
     return TTOperator([_tensor(c, device, dtype) for c in cores], ot)
+
+
+def qttvector_from_numpy(cores, n_dims: int, bits_per_dim: int,
+                         ordering: str, ot=None, *, device,
+                         dtype=None) -> QTTVector:
+    """QTTVector from ``(r_left, 2, r_right)`` arrays and its metadata."""
+    return QTTVector(ttvector_from_numpy(cores, ot, device=device,
+                                         dtype=dtype),
+                     n_dims, bits_per_dim, ordering)
+
+
+def qttoperator_from_numpy(cores, n_dims: int, bits_per_dim: int,
+                           ordering: str, ot=None, *, device,
+                           dtype=None) -> QTTOperator:
+    """QTTOperator from ``(r_left, 2, 2, r_right)`` arrays and its
+    metadata."""
+    return QTTOperator(ttoperator_from_numpy(cores, ot, device=device,
+                                             dtype=dtype),
+                       n_dims, bits_per_dim, ordering)
 
 
 def stack_from_numpy(arr, *, device, dtype=None) -> torch.Tensor:
