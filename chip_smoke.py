@@ -144,6 +144,31 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    f64 rel error to u_sin <= 1e-9, f32 reported; ms/sweep, realized ranks,
    peak device memory; (d) mals_eigsolve_scan of the XXX chain at d = 10,
    rmax = 16, f32, 2 sweeps: the last energy within rel 1e-5.
+11. The eager solver tier (no kernel; TF32 off; each line with its gate
+   and ms/step or ms/sweep by the host clock, ending in a synchronize,
+   beside the scan tier's number from phases 4, 6 and 7 where they time
+   the same problem; sub-phase wall times logged): (a) the flagship's
+   heat problem (entry.sine_mode_problem at the heat settings, the
+   three-mode state, 8 steps of 1e-6): crank_nicholson_method with ALS
+   from the state padded to ranks 16, 32 and 64 in f32 (the trajectory
+   against the closed form rel <= 1e-3, return_error <= 1e-2, and the
+   last step's dense residual <= 1e-2), then in f64 against the per-mode
+   CN recurrence: ALS at r16 (rel <= 1e-10), MALS (rmax 16), DMRG
+   (rmax_schedule [16]) and TT-Krylov (max_bond 16, CG) for 2 steps (rel
+   <= 1e-6), and implicit_euler_method with ALS against its own per-mode
+   factor (rel <= 1e-10); (b) tridiag(1, -2, 1) on modes 1, 16 and 256,
+   f64, T = 10 in 50 steps: euler_method and implicit_euler_method (ALS)
+   <= 5e-3, crank_nicholson_method (MALS) <= 1e-5, rk4_method (max_bond
+   25) and expintegrator_tt (krylov_dim 30, max_bond 16) <= 1e-9 against
+   the exact evolution; (c) the XXX chain from the seeded rank-4 start,
+   f32, 3 sweeps at d = 10, rmax = 16 through dmrg_eigsolve, als_eigsolve
+   (rank grown to 16), mals_eigsolve and als_gen_eigsolv of (A, 2 I), and
+   dmrg_eigsolve with LOBPCG (it_solver=True) at d = 12, rmax = 64: the
+   last energy within rel 1e-5 of the dense ground energy (of half of it
+   for the pencil); (d) phase 7's problem through tdvp (16 steps) and
+   tdvp2 (max_bond 8, 8 steps), complex128: the analytic decay rel <=
+   1e-3; (e) the launch counts are the same before and after the phase,
+   and every result is on the card.
 
 The last two lines are a JSON summary of the kernels (13 rows: errors,
 times, bound, library time; ``kernel_route`` the wrapper's route where it
@@ -198,6 +223,17 @@ BF16_ULP = 2.0 ** -8
 QTT_D, LAP2D_BITS = 12, 10
 ALS_EIG, ALS_EIG_SWEEPS = (12, 32), 2
 MALS_LIN, MALS_EIG = (12, 64), (10, 16)
+# the eager solver tier: 11a's f32 guess ranks and f64 runs,
+# 11b's explicit problem (T = 10 in 50 steps), 11c's eigenproblems (d,
+# rmax; the LOBPCG run's) and sweep counts
+EAGER_RANKS, EAGER_F64_RANK, EAGER_F64_STEPS = (16, 32, 64), 16, 2
+HEAT_MODES = ((1, 1.0), (3, 0.5), (9, 0.25))  # entry.three_mode_state's
+EXPL_MODES, EXPL_T, EXPL_STEPS = ((1, 1.0), (16, 0.5), (256, 0.25)), 10.0, 50
+EIG, EIG_LOBPCG, EIG_SWEEPS = (10, 16), (12, 64), 3
+LOBPCG_SWEEPS = 3  # from rank 4, ranks double each half sweep up to 64
+# scan-tier ms/step and ms/sweep of phases 4, 6 and 7, printed beside the
+# eager tier's in phase 11
+SCAN_MS: dict[str, float] = {}
 # published dense peaks of one H100 SXM (NVIDIA's data sheet): FLOP/s by
 # operand type of the summarized rows (bf16 on the tensor cores, f32 on
 # the CUDA cores) and device-memory bytes/s
@@ -778,6 +814,7 @@ def phase_main_path(device):
                       / np.linalg.norm(d8))
         gflops = cn_step_flops(D, rmax, 4, 4, cg_iters=CG_ITERS + 1) / (
             ms * 1e-3) / 1e9
+        SCAN_MS[f"cn r{rmax}"] = ms
         log(f"cn_step d={D} r{rmax}: {ms:.3f} ms/step ({gflops:.2f} "
             f"GFLOP/s) | plain {plain_ms:.3f} ms/step | traj rel "
             f"{rel:.3e} (<= 1e-3) residual {res:.3e} (<= 1e-2) | kernel vs "
@@ -1072,6 +1109,7 @@ def phase_dmrg_path(device):
             gflops = dmrg_eig_sweep_flops(d, rmax, RA, 2, DMRG_ITERS) / (
                 ms * 1e-3) / 1e9
             per_sweep = {k: v // sweeps for k, v in counts.items() if v}
+            SCAN_MS[f"dmrg d{d} r{rmax} {solver}"] = ms
             log(f"dmrg d={d} r{rmax} {solver:13s} f32: {ms:.3f} ms/sweep "
                 f"({gflops:.2f} GFLOP/s) | plain {plain_ms:.3f} ms/sweep | "
                 f"E {e:.9f} dense {E0:.9f} rel {rel:.3e} (<= 1e-5) | "
@@ -1126,6 +1164,7 @@ def phase_tdvp_path(device):
         expect = u0d * np.exp(-p["lam1"] * n * TDVP_H)
         rel = float(np.linalg.norm(got.numpy() - expect)
                     / np.linalg.norm(expect))
+        SCAN_MS[name] = sec / n * 1e3
         log(f"{name} d={TDVP_D} r{TDVP_RMAX} h={TDVP_H} f32 imag_real: "
             f"{sec / n * 1e3:.3f} ms/step ({n} steps, median of 3) | rel "
             f"to the analytic decay {rel:.3e} (<= 1e-3) | ranks {rks}")
@@ -1864,6 +1903,262 @@ def phase_qtt_path(device):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# The eager solver tier
+# ---------------------------------------------------------------------------
+
+
+def wall_ms(run):
+    """``(ms, run())`` by the host clock, ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def eager_dense(x):
+    """The represented vector of a TT on the card, as float64 (complex128
+    for complex cores) numpy; raises if a core left the card."""
+    from ttnx_torch.core.decomp import ttv_to_tensor
+
+    if not all(c.is_cuda for c in x.cores):
+        raise RuntimeError("an eager result left the card")
+    v = ttv_to_tensor(x).reshape(-1)
+    return v.to(torch.complex128 if v.is_complex() else torch.float64
+                ).cpu().numpy()
+
+
+def rel_to(got, want):
+    return float(np.linalg.norm(got - want) / np.linalg.norm(want))
+
+
+def gate(label, ok, **values):
+    if not ok:
+        raise RuntimeError(f"{label} failed its gate: {values}")
+
+
+def scan_beside(key):
+    ms = SCAN_MS.get(key)
+    return "not run" if ms is None else f"{ms:.3f}"
+
+
+def eager_implicit_steppers(device, ranks=EAGER_RANKS):
+    """11a: the flagship's heat problem through the eager implicit
+    steppers: CN with ALS at each guess rank in f32 (bench.py:670's two
+    gates), then in f64 against the per-mode CN recurrence (ALS at r16,
+    MALS, DMRG and TT-Krylov at rank 16 for EAGER_F64_STEPS steps) and
+    implicit Euler with ALS against its own per-mode factor."""
+    from ttnx_torch.entry import mode_sum, sine_mode_problem
+    from ttnx_torch.solvers.steppers import (crank_nicholson_method,
+                                             implicit_euler_method)
+
+    hg = 1.0 / (2 ** D + 1)
+    heat = dict(d=D, scale=1.0 / hg ** 2, modes=HEAT_MODES)
+    exact = cn_analytic(D, hg, H_STEP, N_STEPS)
+
+    def cn(p, n, solver, **kw):
+        return crank_nicholson_method(p["A"], p["u0"], p["guess"],
+                                      [H_STEP] * n, normalize=False,
+                                      return_error=True, tt_solver=solver,
+                                      **kw)
+
+    warm = sine_mode_problem(device, rmax=ranks[0], dtype=torch.float32,
+                             **heat)
+    cn(warm, 1, "als")  # cuSOLVER and einsum set-up out of the timings
+    for rmax in ranks:
+        p = sine_mode_problem(device, rmax=rmax, dtype=torch.float32, **heat)
+        ms, (u, err) = wall_ms(lambda: cn(p, N_STEPS, "als"))
+        u8 = eager_dense(u)
+        rel = rel_to(u8, exact)
+        # the last step's residual with the exact operators, from the
+        # closed-form state before it (return_error's TT norm of a
+        # difference rounds to 0 in f32)
+        res = cn_residual(u8, cn_analytic(D, hg, H_STEP, N_STEPS - 1), hg,
+                          H_STEP)
+        log(f"11a crank_nicholson_method als d={D} r{rmax} f32 ({N_STEPS} "
+            f"steps, h={H_STEP}): {ms / N_STEPS:.1f} ms/step | scan tier "
+            f"(phase 4) {scan_beside(f'cn r{rmax}')} ms/step | traj rel "
+            f"{rel:.3e} (<= 1e-3) return_error {err:.3e} (<= 1e-2) dense "
+            f"residual {res:.3e} (<= 1e-2) | dtype {str(u.dtype)[6:]} "
+            f"ranks {max(u.ranks)}")
+        gate(f"11a cn als r{rmax} f32", u.dtype == torch.float32
+             and np.isfinite(rel) and rel <= 1e-3 and err <= 1e-2
+             and res <= 1e-2, rel=rel, err=err, res=res)
+
+    r = EAGER_F64_RANK
+    p = sine_mode_problem(device, rmax=r, dtype=torch.float64, **heat)
+    lam = np.array(p["lam"])
+    g_cn = (1 + H_STEP * lam / 2) / (1 - H_STEP * lam / 2)
+    runs = [("als", N_STEPS, {}, 1e-10),
+            ("mals", EAGER_F64_STEPS, dict(rmax=r), 1e-6),
+            ("dmrg", EAGER_F64_STEPS, dict(rmax_schedule=[r]), 1e-6),
+            ("krylov", EAGER_F64_STEPS, dict(max_bond=r, issymmetric=True,
+                                             isposdef=True), 1e-6)]
+    for solver, n, kw, tol in runs:
+        ms, (u, _) = wall_ms(lambda: cn(p, n, solver, **kw))
+        rel = rel_to(eager_dense(u), mode_sum(D, hg, HEAT_MODES, g_cn ** n))
+        log(f"11a crank_nicholson_method {solver} d={D} r{r} f64 ({n} "
+            f"steps): {ms / n:.1f} ms/step | rel to the per-mode CN "
+            f"recurrence {rel:.3e} (<= {tol:g}) | ranks {max(u.ranks)}")
+        gate(f"11a cn {solver} f64", np.isfinite(rel) and rel <= tol,
+             rel=rel)
+    ms, u = wall_ms(lambda: implicit_euler_method(
+        p["A"], p["u0"], p["guess"], [H_STEP] * N_STEPS, normalize=False,
+        tt_solver="als"))
+    g_ie = 1 / (1 - H_STEP * lam)
+    rel = rel_to(eager_dense(u), mode_sum(D, hg, HEAT_MODES,
+                                          g_ie ** N_STEPS))
+    log(f"11a implicit_euler_method als d={D} r{r} f64 ({N_STEPS} steps): "
+        f"{ms / N_STEPS:.1f} ms/step | rel to the per-mode factor "
+        f"{rel:.3e} (<= 1e-10)")
+    gate("11a implicit euler f64", np.isfinite(rel) and rel <= 1e-10,
+         rel=rel)
+
+
+def eager_explicit_steppers(device):
+    """11b: tridiag(1, -2, 1) (every |lam| <= 4) on three modes, f64, T =
+    10 in 50 steps: the explicit steppers and the exponential integrator
+    at their accuracy classes against ``sum c_k e^{T lam_k} mode_k``."""
+    from ttnx_torch.entry import mode_sum, sine_mode_problem
+    from ttnx_torch.solvers.krylov import expintegrator_tt
+    from ttnx_torch.solvers.steppers import (crank_nicholson_method,
+                                             euler_method,
+                                             implicit_euler_method,
+                                             rk4_method)
+
+    p = sine_mode_problem(device, d=D, modes=EXPL_MODES)
+    A, u0, hg = p["A"], p["u0"], p["hg"]
+    h = EXPL_T / EXPL_STEPS
+    steps = [h] * EXPL_STEPS
+    exact = mode_sum(D, hg, EXPL_MODES, np.exp(EXPL_T * np.array(p["lam"])))
+    moved = rel_to(exact, eager_dense(u0))
+    runs = [
+        ("euler_method", lambda: euler_method(A, u0, steps, normalize=False),
+         5e-3, EXPL_STEPS),
+        ("implicit_euler_method als", lambda: implicit_euler_method(
+            A, u0, u0, steps, normalize=False, tt_solver="als"), 5e-3,
+         EXPL_STEPS),
+        ("crank_nicholson_method mals", lambda: crank_nicholson_method(
+            A, u0, u0, steps, normalize=False, tt_solver="mals"), 1e-5,
+         EXPL_STEPS),
+        ("rk4_method max_bond=25", lambda: rk4_method(
+            A, u0, steps, max_bond=25, normalize=False), 1e-9, EXPL_STEPS),
+        ("expintegrator_tt krylov_dim=30 max_bond=16",
+         lambda: expintegrator_tt(A, EXPL_T, u0, krylov_dim=30,
+                                  max_bond=16)[0], 1e-9, 1),
+    ]
+    for name, run, tol, n in runs:
+        ms, u = wall_ms(run)
+        rel = rel_to(eager_dense(u), exact)
+        per = f"{ms / n:.1f} ms/step" if n > 1 else f"{ms:.1f} ms/call"
+        log(f"11b {name} d={D} f64 T={EXPL_T} ({n} steps): {per} | rel "
+            f"to the exact evolution {rel:.3e} (<= {tol:g}; the state "
+            f"moves {moved:.3e}) | ranks {max(u.ranks)}")
+        gate(f"11b {name}", np.isfinite(rel) and rel <= tol, rel=rel)
+
+
+def eager_eigensolvers(device):
+    """11c: the open XXX chain from the seeded rank-4 start, f32, against
+    the dense ground energy: DMRG, ALS (rank grown to rmax) and MALS with
+    dense local eigh at (d, rmax) = EIG; DMRG with LOBPCG at EIG_LOBPCG;
+    the pencil (A, 2 I) by ALS."""
+    from ttnx_torch.core.tt import id_tto
+    from ttnx_torch.entry import als_eig_problem, dense_xxx_groundstate
+    from ttnx_torch.solvers.als import als_eigsolve, als_gen_eigsolv
+    from ttnx_torch.solvers.dmrg import dmrg_eigsolve
+    from ttnx_torch.solvers.mals import mals_eigsolve
+
+    d, rmax = EIG
+    E0 = dense_xxx_groundstate(d)
+    p = als_eig_problem(device, d=d, rmax=4, dtype=torch.float32)
+    A, x0 = p["A"], p["x0"]
+    grow = dict(sweep_schedule=[1, EIG_SWEEPS + 1], rmax_schedule=[4, rmax])
+    runs = [
+        ("dmrg_eigsolve", lambda: dmrg_eigsolve(
+            A, x0, sweep_schedule=[EIG_SWEEPS + 1], rmax_schedule=[rmax])),
+        ("als_eigsolve", lambda: als_eigsolve(A, x0, **grow)),
+        ("mals_eigsolve", lambda: mals_eigsolve(
+            A, x0, sweep_schedule=[EIG_SWEEPS + 1], rmax_schedule=[rmax])),
+        ("als_gen_eigsolv (A, 2 I)", lambda: als_gen_eigsolv(
+            A, 2.0 * id_tto(d, dtype=torch.float32, device=device), x0,
+            **grow)),
+    ]
+    for name, run in runs:
+        ms, (E, x, *_) = wall_ms(run)
+        want = E0 / 2 if "gen" in name else E0
+        rel = abs(E[-1] - want) / abs(want)
+        scan = (f" | scan tier (phase 6, lanczos) "
+                f"{scan_beside(f'dmrg d{d} r{rmax} lanczos')} ms/sweep"
+                if name == "dmrg_eigsolve" else "")
+        log(f"11c {name} d={d} rmax={rmax} f32 ({EIG_SWEEPS} sweeps): "
+            f"{ms / EIG_SWEEPS:.1f} ms/sweep{scan} | E {E[-1]:.9f} dense "
+            f"{want:.9f} rel {rel:.3e} (<= 1e-5) | ranks {max(x.ranks)}")
+        eager_dense(x)  # on the card
+        gate(f"11c {name}", np.isfinite(E).all() and rel <= 1e-5, rel=rel)
+
+    d, rmax = EIG_LOBPCG
+    E0 = dense_xxx_groundstate(d)
+    p = als_eig_problem(device, d=d, rmax=4, dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats()
+    ms, (E, x, r_hist) = wall_ms(lambda: dmrg_eigsolve(
+        p["A"], p["x0"], sweep_schedule=[LOBPCG_SWEEPS + 1],
+        rmax_schedule=[rmax], it_solver=True))
+    rel = abs(E[-1] - E0) / abs(E0)
+    log(f"11c dmrg_eigsolve it_solver=True (LOBPCG above M = 256) d={d} "
+        f"rmax={rmax} f32 ({LOBPCG_SWEEPS} sweeps): "
+        f"{ms / LOBPCG_SWEEPS:.1f} ms/sweep | scan tier (phase 6, lanczos) "
+        f"{scan_beside(f'dmrg d{d} r{rmax} lanczos')} ms/sweep | E "
+        f"{E[-1]:.9f} dense {E0:.9f} rel {rel:.3e} (<= 1e-5) | ranks "
+        f"{max(x.ranks)} | peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    eager_dense(x)
+    gate("11c dmrg LOBPCG", np.isfinite(E).all() and rel <= 1e-5, rel=rel)
+
+
+def eager_tdvp(device):
+    """11d: phase 7's imaginary-time problem through the eager tdvp (16
+    steps) and tdvp2 (max_bond 8, 8 steps), complex128 as the reference
+    computes, against the analytic decay."""
+    from ttnx_torch.entry import tdvp_problem
+    from ttnx_torch.solvers.tdvp import tdvp, tdvp2
+
+    p = tdvp_problem(device, d=TDVP_D, rmax=TDVP_RMAX)
+    u0d = eager_dense(p["u0"])
+    for name, fn, n, kw, scan in (
+            ("tdvp", tdvp, 16, {}, "tdvp1_step"),
+            ("tdvp2", tdvp2, 8, dict(max_bond=TDVP_RMAX), "tdvp2_step")):
+        ms, u = wall_ms(lambda: fn(p["A"], p["u0"], [TDVP_H] * n,
+                                   imaginary_time=True, normalize=False,
+                                   **kw))
+        rel = rel_to(eager_dense(u), u0d * np.exp(-p["lam1"] * n * TDVP_H))
+        log(f"11d {name} d={TDVP_D} h={TDVP_H} ({n} steps, "
+            f"{str(u.dtype)[6:]}): {ms / n:.1f} ms/step | scan tier "
+            f"(phase 7, {scan}) {scan_beside(scan)} ms/step | rel to the "
+            f"analytic decay {rel:.3e} (<= 1e-3) | ranks {max(u.ranks)}")
+        gate(f"11d {name}", np.isfinite(rel) and rel <= 1e-3, rel=rel)
+
+
+def phase_eager_tier(device):
+    """11: the eager solver tier on the card, TF32 off; it runs no kernel
+    (11e: the launch counts are the same before and after)."""
+    from ttnx_torch.config import matmul_precision
+    from ttnx_torch.kernels.dispatch import launch_counts
+
+    before = launch_counts()
+    with matmul_precision("highest"):
+        timed("11a", eager_implicit_steppers, device)
+        timed("11b", eager_explicit_steppers, device)
+        timed("11c", eager_eigensolvers, device)
+        timed("11d", eager_tdvp, device)
+    after = launch_counts()
+    log(f"11e kernel launches during phase 11: "
+        f"{ {k: after[k] - before[k] for k in after} } (all 0)")
+    if after != before:
+        raise RuntimeError(f"the eager tier launched kernels: {before} -> "
+                           f"{after}")
+
+
 def summarize(rows, path_rows, counts):
     """One JSON row per kernel at the type and rank where its path runs
     it: f32 at rank 64 (B3, B9, B10 at 16; B5 and B6, right, at B =
@@ -1943,6 +2238,7 @@ def main() -> int:
     contraction_counts, path_rows = timed("9", phase_contraction_path,
                                           device)
     later += [contraction_counts, timed("10", phase_qtt_path, device)]
+    timed("11", phase_eager_tier, device)
     for path_counts in later:
         for name, n in path_counts.items():
             if name not in CN_KERNELS:

@@ -7,6 +7,7 @@ results are compared as dense tensors (gauge-free) in float64 to 1e-12.
 
 import ast
 import math
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -373,3 +374,41 @@ PORT_FILES = sorted((REPO / "ttnx_torch").rglob("*.py")) + [
 def test_port_imports_no_jax(path):
     bad = _imported_roots(path) & {"jax", "jaxlib", "ttnx"}
     assert not bad, f"{path.name} imports {sorted(bad)}"
+
+
+# ---------------------------------------------------------------------------
+# One thin SVD for the whole package
+# ---------------------------------------------------------------------------
+
+SVD_CALL = re.compile(r"\b(?:torch\.svd|linalg\.svd)\(")
+
+
+def test_every_thin_svd_goes_through_the_helper():
+    """The one torch SVD call in ttnx_torch is ``core/linalg.thin_svd``'s,
+    which picks cuSOLVER's ``gesvd`` on the card (numpy's host SVDs of
+    ``core/decomp.py`` are not torch calls and stay)."""
+    found = []
+    for path in sorted((REPO / "ttnx_torch").rglob("*.py")):
+        for line in path.read_text().splitlines():
+            code = line.split("#")[0].replace("np.linalg.svd(", "")
+            if SVD_CALL.search(code):
+                found.append(str(path.relative_to(REPO)))
+    assert found == ["ttnx_torch/core/linalg.py"], found
+
+
+@pytest.mark.parametrize("shape,dtype", [((40, 7), torch.float64),
+                                         ((5, 9), torch.complex128),
+                                         ((64, 16), torch.float32)])
+def test_thin_svd_on_the_cpu(shape, dtype):
+    from ttnx_torch.core.linalg import thin_svd
+
+    g = torch.Generator().manual_seed(0)
+    m = torch.randn(shape, generator=g, dtype=dtype)
+    u, s, vh = thin_svd(m)
+    k = min(shape)
+    assert u.shape == (shape[0], k) and vh.shape == (k, shape[1])
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    eye = torch.eye(k, dtype=dtype)
+    assert float((u.conj().T @ u - eye).abs().max()) <= tol
+    assert float(((u * s.to(dtype)) @ vh - m).abs().max()) <= tol * float(
+        m.abs().max())

@@ -38,7 +38,11 @@ through B8: route ``cluster`` on the XXX chain in f32 at d = 12, R = 32
 (energy within 1e-5 of the dense ground energy), ``staged`` on the
 Laplacian (RA = 3) and in f64 (energies within 1e-4, f32, and 1e-10, f64,
 of the largest of the same solve on the CPU in f64). One MALS sweep on the card
-gives the CPU's realized ranks and state (1e-10, f64).
+gives the CPU's realized ranks and state (1e-10, f64). The eager tier runs
+no kernel: ``thin_svd`` keeps f32 singular vectors orthonormal to 5e-6,
+an eager ALS solve and ``expm_multiply`` on the card give the CPU's
+results (1e-10, f64), and the port's LOBPCG finds a seeded top eigenpair
+at M = 4096 in f32 (1e-5).
 """
 
 import numpy as np
@@ -912,3 +916,97 @@ def test_mals_sweep_on_the_card_matches_the_cpu(cuda):
     got = ttv_to_tensor(out[1]).reshape(-1).cpu()
     err = min(float((got - ref).norm()), float((got + ref).norm()))
     assert err <= 1e-10 * float(ref.norm())
+
+
+# ---------------------------------------------------------------------------
+# The eager tier on the card: no kernel, cuSOLVER and cuBLAS
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_thin_svd_is_orthonormal_in_float32(cuda):
+    """``core.linalg.thin_svd`` (cuSOLVER's ``gesvd`` on the card) keeps a
+    seeded 1024 x 64 f32 matrix's singular vectors orthonormal to 5e-6
+    (the Jacobi default reached only 1.3e-5 on the two-site splits)."""
+    from ttnx_torch.core.linalg import thin_svd
+
+    rng = np.random.default_rng(14)
+    m = torch.as_tensor(rng.standard_normal((1024, 64)), dtype=torch.float32,
+                        device=cuda)
+    u, s, vh = thin_svd(m)
+    eye = torch.eye(64, dtype=torch.float32, device=cuda)
+    assert float((u.T @ u - eye).abs().max()) <= 5e-6
+    assert float((vh @ vh.T - eye).abs().max()) <= 5e-6
+
+
+def _heat_problem(dev, d=8, rmax=8):
+    from ttnx_torch.entry import sine_mode_problem
+
+    hg = 1.0 / (2 ** d + 1)
+    return sine_mode_problem(dev, d=d, scale=1.0 / hg ** 2,
+                             modes=((1, 1.0), (3, 0.5), (9, 0.25)),
+                             rmax=rmax)
+
+
+@pytest.mark.cuda
+def test_eager_als_solve_on_the_card_matches_the_cpu(cuda):
+    """One eager ALS solve of the CN system (I - h/2 A) x = u0, f64, d = 8,
+    guess rank 8: the card's represented vector is the CPU's (1e-10) and
+    every core stays on the card."""
+    from ttnx_torch.core.algebra import add_op, scale_op
+    from ttnx_torch.core.tt import id_tto
+    from ttnx_torch.solvers.als import als_linsolve
+
+    out = []
+    for dev in (torch.device("cpu"), cuda):
+        p = _heat_problem(dev)
+        lhs = add_op(id_tto(8, device=dev), scale_op(-5e-6, p["A"]))
+        out.append(als_linsolve(lhs, p["u0"], p["guess"], sweep_count=4))
+    assert all(c.is_cuda for c in out[1].cores)
+    ref = ttv_to_tensor(out[0]).reshape(-1)
+    got = ttv_to_tensor(out[1]).reshape(-1).cpu()
+    assert float((got - ref).norm() / ref.norm()) <= 1e-10
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", [0.3, -0.2j])
+def test_expm_multiply_on_the_card_matches_the_cpu(cuda, t):
+    """``expm_multiply`` of a seeded symmetric 200 x 200 f64 matrix: the
+    card's result is the CPU's (1e-10), on the card."""
+    from ttnx_torch.solvers.krylov import expm_multiply
+
+    rng = np.random.default_rng(3)
+    G = rng.standard_normal((200, 200)) / np.sqrt(200)
+    M, v = 0.5 * (G + G.T), rng.standard_normal(200)
+    out = []
+    for dev in (torch.device("cpu"), cuda):
+        Mt = torch.as_tensor(M, device=dev)
+        out.append(expm_multiply(lambda x: Mt.to(x.dtype) @ x, t,
+                                 torch.as_tensor(v, device=dev)))
+    assert out[1].is_cuda
+    err = (out[1].cpu() - out[0]).abs().max() / out[0].abs().max()
+    assert float(err) <= 1e-10
+
+
+@pytest.mark.cuda
+def test_lobpcg_on_a_shifted_matrix_in_float32(cuda):
+    """``core.linalg.lobpcg_standard`` on the card, f32, M = 4096: the top
+    eigenpair of a seeded ``Q diag(w) Q^T`` (spectrum in [0, 1], top
+    eigenvalue 1.5) as DMRG's shifted local matrix gives it, to 1e-5 (at
+    ``tol = 1e-9``; JAX's rule at the default f32 eps stops at a residual
+    of ~1e-2 here)."""
+    from ttnx_torch.core.linalg import lobpcg_standard
+
+    rng = np.random.default_rng(7)
+    M = 4096
+    q, _ = np.linalg.qr(rng.standard_normal((M, M)))
+    w = np.linspace(0.0, 1.0, M)
+    w[-1] = 1.5
+    K = torch.as_tensor((q * w) @ q.T, dtype=torch.float32, device=cuda)
+    X = torch.as_tensor(rng.standard_normal((M, 1)), dtype=torch.float32,
+                        device=cuda)
+    theta, U, it = lobpcg_standard(K, X, m=100, tol=1e-9)
+    assert U.is_cuda and it < 100
+    assert abs(float(theta[0]) - 1.5) <= 1.5e-5
+    overlap = abs(float(U[:, 0].double().cpu() @ torch.as_tensor(q[:, -1])))
+    assert overlap >= 1 - 1e-5

@@ -6,6 +6,7 @@ constructors of ``ttnx_torch.ops``, of the core TT types, the rank masks
 and the numpy bridge likewise take a required ``device``."""
 
 import inspect
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -19,7 +20,7 @@ from ttnx_torch.utils import convert
 
 # entry points that take no device: numpy/scipy builders and oracles
 HOST_ONLY = {"flat_spectrum_stack", "dense_xxx_groundstate",
-             "convection_cn_operators", "dense_cn_reference"}
+             "convection_cn_operators", "dense_cn_reference", "mode_sum"}
 
 
 def test_every_tensor_builder_takes_a_required_device():
@@ -41,7 +42,8 @@ def test_host_only_entry_points_build_on_numpy():
                                      (1, 2, 2, 1), 2),
            entry.dense_xxx_groundstate(4),
            *entry.convection_cn_operators(4, hg, 1e-3, 10.0),
-           entry.dense_cn_reference(4, hg, 1e-3, 10.0, np.ones(16), 2)]
+           entry.dense_cn_reference(4, hg, 1e-3, 10.0, np.ones(16), 2),
+           entry.mode_sum(4, hg, ((1, 1.0),), (0.5,))]
     assert not any(torch.is_tensor(g) for g in got)
     assert isinstance(got[0], np.ndarray) and got[0].shape == (3, 2, 2, 2)
 
@@ -136,6 +138,8 @@ CORE_CONSTRUCTORS = [
     # the entry builders of slice 13, at their default sizes
     (entry.als_eig_problem, ()),
     (entry.mals_problem, ()),
+    # and of the eager tier
+    (entry.sine_mode_problem, ()),
 ]
 
 
@@ -143,7 +147,8 @@ def _devices(out):
     if torch.is_tensor(out):
         return [out.device]
     if isinstance(out, dict):
-        return [d for v in out.values() if not isinstance(v, int)
+        return [d for v in out.values()
+                if torch.is_tensor(v) or hasattr(v, "cores")
                 for d in _devices(v)]
     return [c.device for c in out.cores]
 
@@ -166,3 +171,57 @@ def test_ops_constructor_needs_a_device(fn, args):
         fn(*args)
     cpu = torch.device("cpu")
     assert all(d == cpu for d in _devices(fn(*args, device=cpu)))
+
+
+def test_sine_mode_problem_is_a_sum_of_eigenmodes():
+    """``u0`` is ``mode_sum`` with unit factors, ``A`` maps it to the
+    modes scaled by ``lam``, the padded guess represents ``u0``, and the
+    heat settings give :func:`three_mode_state`."""
+    from ttnx_torch.core.algebra import matvec
+    from ttnx_torch.core.decomp import ttv_to_tensor
+
+    cpu = torch.device("cpu")
+    d = 6
+    p = entry.sine_mode_problem(cpu, d=d, modes=((1, 1.0), (5, 0.5)),
+                                rmax=8)
+    hg = p["hg"]
+
+    def dense(x):
+        return ttv_to_tensor(x).reshape(-1).numpy()
+
+    ones = [1.0] * len(p["modes"])
+    assert np.allclose(dense(p["u0"]), entry.mode_sum(d, hg, p["modes"],
+                                                      ones), atol=1e-12)
+    assert np.allclose(dense(matvec(p["A"], p["u0"])),
+                       entry.mode_sum(d, hg, p["modes"], p["lam"]),
+                       atol=1e-10)
+    assert max(p["guess"].ranks) == 8
+    assert np.allclose(dense(p["guess"]), dense(p["u0"]), atol=1e-12)
+    heat = entry.sine_mode_problem(cpu, d=d, scale=1.0 / hg ** 2,
+                                   modes=((1, 1.0), (3, 0.5), (9, 0.25)))
+    assert np.array_equal(dense(heat["u0"]),
+                          dense(entry.three_mode_state(d, hg, cpu)))
+
+
+# the eager tier and the modules it brought forward
+EAGER_MODULES = ["ttnx_torch.config", "ttnx_torch.utils.profiling",
+                 "ttnx_torch.core.linalg", "ttnx_torch.solvers.als",
+                 "ttnx_torch.solvers.mals", "ttnx_torch.solvers.dmrg",
+                 "ttnx_torch.solvers.krylov", "ttnx_torch.solvers.tdvp",
+                 "ttnx_torch.solvers.steppers"]
+
+
+@pytest.mark.parametrize("module", EAGER_MODULES)
+def test_eager_module_loads_no_jax(module):
+    """Importing the module in a fresh interpreter loads neither jax nor
+    ttnx."""
+    import subprocess
+    import sys
+
+    code = (f"import sys, importlib; importlib.import_module({module!r}); "
+            "print(sorted({m.split('.')[0] for m in sys.modules} "
+            "& {'jax', 'jaxlib', 'ttnx'}))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, timeout=120,
+                         cwd=Path(__file__).resolve().parents[1])
+    assert out.stdout.strip() == "[]", out.stdout + out.stderr

@@ -7,13 +7,17 @@ step, the batched ALS, the DMRG and TDVP scan tier, the last kernels
 contractions of ``ttnx_torch.kernels.contraction``), the QTT constructor
 library (operators, function encodings, multi-dimensional QTT wrappers,
 the quantics Fourier transform, interpolation) and the scan-tier ALS
-eigensolve and MALS. Layouts match
+eigensolve and MALS, and the eager solver tier (ALS, MALS, DMRG, the
+TT-Krylov methods, TDVP and the four time steppers) with its config
+objects and telemetry. Layouts match
 ``ttnx``: vector cores ``(r_left, n, r_right)``, operator cores
 ``(r_left, n_out, n_in, r_right)``, padded stacks ``(d, R, n, R)`` / ``(d,
 RA, n, n, RA)``, masks ``(d+1, R)``, big-endian bits. Every device is
 explicit.
 """
 
+from ttnx_torch.config import (ALSConfig, DMRGConfig, KrylovConfig,
+                               MALSConfig, TDVPConfig, matmul_precision)
 from ttnx_torch.core.algebra import (add, add_op, dot, matmul, matvec, norm,
                                      scale, scale_op, sub, sub_op)
 from ttnx_torch.core.canonical import orthogonalize, svdtrunc, tt_round
@@ -50,6 +54,8 @@ from ttnx_torch.parallel.batch import (batched_als_sweeps,
                                        batched_dmrg_eig_sweeps,
                                        batched_tdvp1_steps,
                                        batched_tdvp2_steps)
+from ttnx_torch.solvers.als import (als_eigsolve, als_gen_eigsolv,
+                                    als_linsolve)
 from ttnx_torch.solvers.als_scan import (als_eigsolve_scan,
                                          als_eigsolve_sweeps,
                                          als_linsolve_scan, als_sweeps,
@@ -58,14 +64,23 @@ from ttnx_torch.solvers.als_scan import (als_eigsolve_scan,
 from ttnx_torch.solvers.dmrg_scan import (cut_off_mask, dmrg_eig_sweep,
                                           dmrg_eigsolve_scan,
                                           dmrg_linsolve_scan, dmrg_sweep)
+from ttnx_torch.solvers.dmrg import dmrg_eigsolve, dmrg_linsolve
+from ttnx_torch.solvers.krylov import (expintegrator_tt, expm_multiply,
+                                       krylov_linsolve)
+from ttnx_torch.solvers.mals import mals_eigsolve, mals_linsolve
 from ttnx_torch.solvers.mals_scan import (mals_eig_sweep,
                                           mals_eigsolve_scan,
                                           mals_linsolve_scan, mals_sweep)
 from ttnx_torch.solvers.round_scan import (cn_step, make_cn_evolve,
                                            make_cn_step, matvec_padded,
                                            tt_round_gram, tt_round_scan)
+from ttnx_torch.solvers.steppers import (crank_nicholson_method,
+                                         euler_method, implicit_euler_method,
+                                         rk4_method)
+from ttnx_torch.solvers.tdvp import tdvp, tdvp2
 from ttnx_torch.solvers.tdvp_scan import (tdvp1_scan, tdvp1_step, tdvp2_scan,
                                           tdvp2_step)
+from ttnx_torch.utils.profiling import SolverTelemetry
 
 __all__ = [
     "TTVector", "TTOperator", "zeros_tt", "rand_tt", "id_tto",
@@ -96,4 +111,10 @@ __all__ = [
     "reverse_qtt_bits", "interpolating_qtt", "lagrange_rank_revealing",
     "als_eigsolve_sweeps", "als_eigsolve_scan", "mals_sweep",
     "mals_linsolve_scan", "mals_eig_sweep", "mals_eigsolve_scan",
+    "als_linsolve", "als_eigsolve", "als_gen_eigsolv", "mals_linsolve",
+    "mals_eigsolve", "dmrg_linsolve", "dmrg_eigsolve", "tdvp", "tdvp2",
+    "euler_method", "implicit_euler_method", "crank_nicholson_method",
+    "rk4_method", "krylov_linsolve", "expm_multiply", "expintegrator_tt",
+    "ALSConfig", "DMRGConfig", "KrylovConfig", "MALSConfig", "TDVPConfig",
+    "matmul_precision", "SolverTelemetry",
 ]

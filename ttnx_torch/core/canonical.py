@@ -12,6 +12,7 @@ import math
 import numpy as np
 import torch
 
+from ttnx_torch.core.linalg import thin_svd
 from ttnx_torch.core.tt import TTVector
 
 __all__ = [
@@ -66,8 +67,7 @@ def entanglement_entropy(psi: TTVector, base: float = math.e) -> np.ndarray:
     cores = list(orthogonalize(psi, 0).cores)
     for k in range(n_sites - 1):
         rl, n, rr = cores[k].shape
-        u, s, vt = torch.linalg.svd(cores[k].reshape(rl * n, rr),
-                                    full_matrices=False)
+        u, s, vt = thin_svd(cores[k].reshape(rl * n, rr))
         p = (s.abs() ** 2).cpu().numpy()
         tot = p.sum()
         if tot > 0:
@@ -86,7 +86,7 @@ entanglemententropy = entanglement_entropy
 def svdtrunc(a, max_bond: int | None = None, truncerr: float = 0.0):
     """Truncated SVD keeping ``min(max_bond, #{s_i >= truncerr})`` singular
     values (at least one). Returns ``(U, s, Vt)`` with ``s`` a vector."""
-    u, s, vt = torch.linalg.svd(a, full_matrices=False)
+    u, s, vt = thin_svd(a)
     s_host = s.cpu().numpy()
     keep = int(np.sum(s_host >= truncerr)) if truncerr > 0 else s_host.size
     if max_bond is not None:
@@ -132,8 +132,7 @@ def tt_round(x: TTVector, max_bond: int | None = None,
     cores = list(orthogonalize(x, 0).cores)
     for k in range(d - 1):
         rl, n, rr = cores[k].shape
-        u, s, vt = torch.linalg.svd(cores[k].reshape(rl * n, rr),
-                                    full_matrices=False)
+        u, s, vt = thin_svd(cores[k].reshape(rl * n, rr))
         s_host = s.cpu().numpy()
         keep = s_host.size
         if rel_tol > 0:

@@ -34,6 +34,11 @@ chain from a seeded orthonormal start at the buffer rank, for
 ``als_eigsolve_scan`` and ``mals_eigsolve_scan``) and
 ``mals_problem(device)`` the MALS linear solve (the Dirichlet Laplacian
 with the right-hand side of a sampled sine, which is the exact solution).
+
+``sine_mode_problem(device)`` is the time-stepper workload of the eager
+tier: a scaled Dirichlet Laplacian and a sum of its eigenmodes, whose
+evolution under any stepper is a per-mode factor; ``mode_sum`` is its
+numpy oracle.
 """
 
 from __future__ import annotations
@@ -44,7 +49,8 @@ import numpy as np
 
 from ttnx_torch.core.algebra import add_op, scale_op
 from ttnx_torch.core.canonical import tt_round
-from ttnx_torch.core.tt import TTVector, id_tto, r_and_d_to_rks, rand_tt
+from ttnx_torch.core.tt import (TTVector, id_tto, increase_ranks,
+                                r_and_d_to_rks, rand_tt)
 from ttnx_torch.ops.operators import (heisenberg_xyz_tto, laplacian,
                                       toeplitz_to_qtto)
 from ttnx_torch.ops.qtt import function_to_qtt, qtt_sin
@@ -58,7 +64,8 @@ __all__ = ["entry", "flagship_cn_step", "three_mode_state",
            "convection_cn_operators", "dense_cn_reference",
            "contraction_problem", "norm_keeping_contraction_problem",
            "matmul_ceiling_problem", "norm_keeping_matmul_problem",
-           "als_eig_problem", "mals_problem"]
+           "als_eig_problem", "mals_problem", "sine_mode_problem",
+           "mode_sum"]
 
 
 def flagship_cn_step(device, rmax: int = 16, d: int = 12, h: float = 1e-9,
@@ -191,6 +198,46 @@ def mals_problem(device, *, d: int = 12, rmax: int = 64,
                 rmax=rmax)
 
 
+def sine_mode_problem(device, *, d: int = 12, scale: float = 1.0,
+                      modes=((1, 1.0), (16, 0.5), (256, 0.25)),
+                      rmax: int | None = None, dtype=torch.float64):
+    """A time-stepper workload with a closed form on ``device``: ``A =
+    scale * tridiag(1, -2, 1)`` (``toeplitz_to_qtto(-2, 1, 1)``, MPO rank
+    3), ``u0 = sum_k c_k sin(k pi x)`` on the interior grid ``x_j = j hg``,
+    ``hg = 1 / (2^d + 1)`` (rank 2 a mode), and ``guess``, ``u0`` rounded
+    without truncation and zero-padded to ranks ``rmax`` (``u0`` itself
+    when ``rmax`` is None),
+    all in ``dtype``. Each mode is an eigenvector of ``A`` with eigenvalue
+    ``lam_k = scale (2 cos(k pi hg) - 2)``. ``modes`` are the pairs ``(k,
+    c_k)``; the default is ``examples/time_steppers.py``'s state,
+    ``((1, 1.0), (3, 0.5), (9, 0.25))`` with ``scale = 1 / hg^2`` the
+    flagship's heat problem on :func:`three_mode_state`. Returns a dict of
+    ``A``, ``u0``, ``guess``, ``hg``, ``modes`` and ``lam``."""
+    hg = 1.0 / (2 ** d + 1)
+    A = scale * toeplitz_to_qtto(-2.0, 1.0, 1.0, d, device=device)
+    u0 = None
+    for k, c in modes:
+        mode = c * qtt_sin(d, a=hg, b=1 - hg, lam=float(k), device=device)
+        u0 = mode if u0 is None else u0 + mode
+    # the sum's edge bonds exceed the feasible ranks: round (exactly) first
+    guess = u0 if rmax is None else increase_ranks(tt_round(u0), rmax)
+    lam = tuple(scale * (2 * np.cos(k * np.pi * hg) - 2) for k, _ in modes)
+    return dict(A=A.astype(dtype), u0=u0.astype(dtype),
+                guess=guess.astype(dtype), hg=hg, modes=tuple(modes),
+                lam=lam)
+
+
+def mode_sum(d: int, hg: float, modes, factors) -> np.ndarray:
+    """``sum_k c_k f_k sin(k pi j hg)`` for ``j = 1 .. 2^d`` (numpy,
+    float64): :func:`sine_mode_problem`'s state with each mode ``(k,
+    c_k)`` scaled by its factor ``f_k``."""
+    j = np.arange(1, 2 ** d + 1)
+    out = np.zeros(2 ** d)
+    for (k, c), f in zip(modes, factors):
+        out += c * f * np.sin(k * np.pi * j * hg)
+    return out
+
+
 def dense_xxx_groundstate(d: int) -> float:
     """Ground energy of the open XXX chain, ``sum_i sx sx + sy sy + sz sz``
     over the bonds (Pauli convention), from Kronecker products with numpy
@@ -241,7 +288,7 @@ def tdvp_problem(device, d: int = 10, rmax: int = 8, *,
                                             device=device)).astype(dtype)
     u0 = qtt_sin(d, a=hg, b=1 - hg, device=device)
     u_rks = r_and_d_to_rks(u0.ranks, (2,) * d, rmax=rmax)
-    return dict(A_stack=pack_op(A, max(A.ranks)),
+    return dict(A=A, A_stack=pack_op(A, max(A.ranks)),
                 x_stack=pack_tt(_host_orth0(u0, dtype, device), rmax),
                 masks=rank_masks(u_rks, rmax, dtype=dtype, device=device),
                 u_rks=u_rks, u0=u0,

@@ -21,6 +21,7 @@ from ttnx_torch.core import algebra
 from ttnx_torch.core.canonical import (entanglement_entropy, orthogonalize,
                                        tt_compress)
 from ttnx_torch.core.decomp import tto_to_tensor, ttv_decomp, ttv_to_tensor
+from ttnx_torch.core.linalg import thin_svd
 from ttnx_torch.core.tt import TTOperator, TTVector, increase_ranks
 
 __all__ = [
@@ -305,7 +306,7 @@ def _svd_keep(m, threshold: float):
     """``(u, s, vt, keep)``: thin SVD of ``m`` and how many singular values
     exceed ``threshold`` times the largest (all when ``threshold`` is 0,
     at least one)."""
-    u, s, vt = torch.linalg.svd(m, full_matrices=False)
+    u, s, vt = thin_svd(m)
     s_host = s.cpu().numpy()
     keep = s_host.size
     if threshold > 0:

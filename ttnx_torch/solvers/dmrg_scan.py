@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from ttnx_torch.core.canonical import orthogonalize
+from ttnx_torch.core.linalg import thin_svd
 from ttnx_torch.core.tt import TTOperator, TTVector
 from ttnx_torch.kernels.env_chain import (boundary_envs, env_chain_A_fused,
                                           env_chain_A_plain,
@@ -237,7 +238,7 @@ def _split_right(V, tol, degen_tol, R, n, method="svd"):
         u = U.flip(1)
         svt = u.conj().T @ Vm
     else:
-        u, s, vt = torch.linalg.svd(Vm, full_matrices=False)
+        u, s, vt = thin_svd(Vm)
         svt = s[:, None] * vt
     keep = cut_off_mask(s, tol, degen_tol)[:R]
     core = (u[:, :R] * keep[None, :]).reshape(R, n, R)
@@ -255,7 +256,7 @@ def _split_left(V, tol, degen_tol, R, n, method="svd"):
         vt = v2.conj().T
         us = Vm @ v2                         # columns u_i * s_i
     else:
-        u, s, vt = torch.linalg.svd(Vm, full_matrices=False)
+        u, s, vt = thin_svd(Vm)
         us = u * s[None, :]
     keep = cut_off_mask(s, tol, degen_tol)[:R]
     core = (vt[:R, :] * keep[:, None]).reshape(R, n, R)

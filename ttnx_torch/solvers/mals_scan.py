@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ttnx_torch.core.linalg import thin_svd
 from ttnx_torch.core.tt import TTOperator, TTVector
 from ttnx_torch.kernels.env_chain import (boundary_envs, env_chain_A_plain,
                                           left_env_b_update, left_env_update,
@@ -75,20 +76,10 @@ def _local2_eigmin(L, Ai, Aj, Renv, m_l, m_r):
     return w[0], U[:, 0].reshape(R, n, n, R)
 
 
-def _svd(m):
-    """Thin SVD; on CUDA by cuSOLVER's ``gesvd``. Its default there, the
-    Jacobi ``gesvdj``, left float32 singular vectors orthonormal to only
-    1.3e-5 (``gesvd`` 1.1e-6, on an H100), and the eigensweep of the d = 10
-    XXX chain then fell 2.4e-4 below the ground energy (rel 5.6e-7 above
-    it with ``gesvd``)."""
-    return torch.linalg.svd(m, full_matrices=False,
-                            driver="gesvd" if m.is_cuda else None)
-
-
 def _split_right(V, tol, R, n):
     """Left-orthonormal core, the pending ``s vt`` and the keep mask of a
     two-site block moving right."""
-    u, s, vt = _svd(V.reshape(R * n, n * R))
+    u, s, vt = thin_svd(V.reshape(R * n, n * R))
     keep = _keep_mask(s, tol)[:R]
     core = (u[:, :R] * keep[None, :]).reshape(R, n, R)
     last = ((s[:R, None] * vt[:R, :]) * keep[:, None]).reshape(R, n, R)
@@ -98,7 +89,7 @@ def _split_right(V, tol, R, n):
 def _split_left(V, tol, R, n):
     """Right-orthonormal core, the pending ``u s`` and the keep mask of a
     two-site block moving left."""
-    u, s, vt = _svd(V.reshape(R * n, n * R))
+    u, s, vt = thin_svd(V.reshape(R * n, n * R))
     keep = _keep_mask(s, tol)[:R]
     core = (vt[:R, :] * keep[:, None]).reshape(R, n, R)
     first = ((u[:, :R] * s[None, :R]) * keep[None, :]).reshape(R, n, R)

@@ -15,6 +15,7 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
+from ttnx_torch.core.linalg import thin_svd
 from ttnx_torch.core.tt import r_and_d_to_rks
 from ttnx_torch.kernels.gram import gram_chain_fused, gram_chain_plain
 from ttnx_torch.solvers.als_scan import (SOLVERS, als_sweeps, pack_op,
@@ -106,7 +107,7 @@ def tt_round_scan(y, masks_y, R_out: int, masks_out, method: str = "svd"):
             u_k = torch.flip(V, dims=[1])[:, :k]
             t_k = u_k.conj().T @ cm
         else:
-            u, s, vt = torch.linalg.svd(cm, full_matrices=False)
+            u, s, vt = thin_svd(cm)
             u_k = u[:, :k]
             t_k = s[:k, None].to(vt.dtype) * vt[:k, :]
         u_k = u_k * m_r_out[None, :k]

@@ -25,6 +25,7 @@ import torch
 
 from ttnx_torch.core.algebra import dot, matvec, norm, scale
 from ttnx_torch.core.canonical import orthogonalize
+from ttnx_torch.core.linalg import thin_svd
 from ttnx_torch.core.tt import TTOperator, TTVector, rand_tt
 from ttnx_torch.kernels.env_chain import (boundary_envs, env_chain_A_plain,
                                           left_env_update, right_env_update)
@@ -297,7 +298,7 @@ def _svd2_masked(Vm, method):
         return u, s, s_inv[:, None].to(svt.dtype) * svt
     if method != "svd":
         raise ValueError(f"split must be 'svd' or 'gram', got {method!r}")
-    return torch.linalg.svd(Vm, full_matrices=False)
+    return thin_svd(Vm)
 
 
 def tdvp2_step(A_stack, x_stack, mask_stack, dt, truncerr, max_keep,
