@@ -170,6 +170,27 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    1e-3; (e) the launch counts are the same before and after the phase,
    and every result is on the card.
 
+12. The cross and the utilities (no kernel; TF32 off; sub-phase wall
+   times logged; every line with the card's name and power limit): (a)
+   the bench's batched MaxVol cross (entry.wishart_cross_problem, B = 16,
+   f32) through maxvol_cross_device's fn(generator): max last val_eps <=
+   1e-3, the rel-L2 of problems 0 and B - 1 on 200 fresh points against
+   the float64 function <= 1e-3, crosses/s (median and best of 3 calls
+   after a warm-up, host clock ending in a synchronize) and one call's
+   host reads (torch's sync-debug mode) and CUDA kernels and copies
+   (torch.profiler); (b) the same for the DMRG cross at B = 8; (c) the
+   separable Gaussian (4 x 12 points, rank 3) by both device makers in
+   f64 against the closed form (<= 1e-8) and tt_cross_device_adaptive's
+   escalation (ranks 2 and 4); (d) the host cross with its cores on the
+   card: the README's 4-D Gaussian by MaxVol (<= 1e-12), DMRGCross and
+   Greedy on one case each of tests/test_cross.py (<= 1e-8, 1e-7), and
+   tt_integrate of exp(-|x|^2) over [-1, 1]^3 within 1e-9 of (sqrt(pi)
+   erf 1)^3; (e) save_tt/load_tt of a QTT vector on the card (bit-equal,
+   the same subclass), resilient_linsolve with the eager als_linsolve
+   after a diverging attempt (<= 1e-8 of the closed form) and
+   assert_finite on a NaN core; (f) the launch counts are the same before
+   and after the phase.
+
 The last two lines are a JSON summary of the kernels (13 rows: errors,
 times, bound, library time; ``kernel_route`` the wrapper's route where it
 has more than one; B6 at B = 512, right; B8 at R = 64, right) and the
@@ -444,10 +465,7 @@ def dense(unpack, stack):
 
 
 def phase_device():
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip().splitlines()[0]
+    smi = smi_line()
     log(smi)
     log(f"device: {torch.cuda.get_device_name(0)} | torch "
         f"{torch.__version__} | CUDA {torch.version.cuda} | python "
@@ -2159,6 +2177,291 @@ def phase_eager_tier(device):
                            f"{after}")
 
 
+# ---------------------------------------------------------------------------
+# Cross and utilities
+# ---------------------------------------------------------------------------
+
+CROSS_BATCH = {"maxvol": 16, "dmrg": 8}  # bench.py's batches
+CROSS_CALLS = 3
+
+
+def smi_line():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+
+
+def reads_and_launches(run):
+    """``(host reads, stream syncs, kernels, copies)`` of one ``run()``: the
+    synchronizing calls torch's sync-debug mode reports, and the
+    ``cudaStreamSynchronize`` calls (cuSOLVER's own included), device
+    kernels and memory copies and sets torch.profiler records."""
+    import warnings
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    reads = sum("synchroniz" in str(w.message) for w in caught)
+    with profiler([ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    # the raw events: building the profiler's event tree for some 10^5
+    # device events takes many seconds
+    events = prof.profiler.kineto_results.events()
+    syncs = sum(e.name() == "cudaStreamSynchronize" for e in events)
+    names = [e.name() for e in events if e.device_type() == DeviceType.CUDA]
+    copies = sum(n.startswith(("Memcpy", "Memset")) for n in names)
+    return reads, syncs, len(names) - copies, copies
+
+
+def wishart_exact(theta, coords):
+    """The Wishart integrand in float64 numpy, ``det(I + theta sigma
+    diag(c))^(-p)``, the independent check of the f32 cross."""
+    from ttnx_torch.entry import WISHART_SIGMA
+
+    m = np.eye(5) + theta * 2 * WISHART_SIGMA * coords[:, None, :]
+    return np.linalg.det(m) ** (-3.5)
+
+
+def batched_cross(device, method, smi):
+    """12a/12b: the bench's batched Wishart cross through the maker's
+    ``fn(generator)`` (f32, TF32 off): the validation gate, the rel-L2 of
+    the first and last problem on 200 fresh points against the float64
+    function, crosses/s (median and best of CROSS_CALLS calls after a
+    warm-up, host clock ending in a synchronize) and one call's host reads
+    and CUDA launches."""
+    from ttnx_torch.cross.device import evaluate_tt_indices
+    from ttnx_torch.entry import wishart_cross_problem
+
+    B = CROSS_BATCH[method]
+    p = wishart_cross_problem(device, batch=B, method=method)
+
+    def run():
+        return p["fn"](torch.Generator(device=device).manual_seed(p["seed"]))
+
+    first_ms, _ = wall_ms(run)
+    times = []
+    for _ in range(CROSS_CALLS):
+        ms, (cores, eps) = wall_ms(run)
+        times.append(ms)
+    if any(c.device != device for c in cores) or tuple(eps.shape) != (B, 3):
+        raise RuntimeError(f"{method} cross: a result left the card or has "
+                           f"the shape {tuple(eps.shape)}")
+    last = float(eps[:, -1].max())
+    gate(f"{method}_cross_device val_eps", np.isfinite(last)
+         and last <= p["gate"], max_last_val_eps=last)
+    rng = np.random.default_rng(2027)
+    idx = np.stack([rng.integers(0, 8, 200) for _ in range(5)], axis=1)
+    grid = np.linspace(0.0, 2.0, 8)
+    fresh = []
+    for k in (0, B - 1):
+        want = wishart_exact(float(p["thetas"][k]), grid[idx])
+        got = evaluate_tt_indices([c[k] for c in cores], torch.as_tensor(
+            idx, device=device)).double().cpu().numpy()
+        fresh.append(rel_to(got, want))
+    gate(f"{method}_cross_device fresh points", max(fresh) <= p["gate"],
+         rel_l2=fresh)
+    reads, syncs, kernels, copies = reads_and_launches(run)
+    per_s = sorted(B / (t / 1e3) for t in times)
+    log(f"12{'a' if method == 'maxvol' else 'b'} {method}_cross_device "
+        f"Wishart d=5 r8 B={B} f32 (TF32 off): "
+        f"{statistics.median(per_s):.2f} crosses/s median of {CROSS_CALLS} "
+        f"calls (best {per_s[-1]:.2f}; {statistics.median(times):.1f} "
+        f"ms a call; first call {first_ms:.1f} ms) | max last val_eps "
+        f"{last:.3e} (gate <= {p['gate']:g}) | rel-L2 on 200 fresh points "
+        f"(problems 0, {B - 1}) {fresh[0]:.2e}, {fresh[1]:.2e} | one call: "
+        f"{reads} host reads ({syncs} cudaStreamSynchronize), {kernels} "
+        f"CUDA kernels, {copies} copies | {smi}")
+
+
+def gaussian_grid(g, d):
+    xs = np.stack(np.meshgrid(*[g] * d, indexing="ij"), axis=-1)
+    return np.exp(-np.sum(xs ** 2, axis=-1))
+
+
+def device_cross_f64(device, smi):
+    """12c: the separable Gaussian (4 dims x 12 points, rank 3) by both
+    makers in f64 against the closed form (<= 1e-8), and the adaptive
+    cross's escalation."""
+    from ttnx_torch.cross.device import (tt_cross_device,
+                                         tt_cross_device_adaptive)
+
+    def gaussian(X):
+        return torch.exp(-(X ** 2).sum(-1))
+
+    g = np.linspace(-1, 1, 12)
+    for method in ("maxvol", "dmrg"):
+        ms, (tt, eps) = wall_ms(lambda: tt_cross_device(
+            gaussian, [g] * 4, rank=3, n_iters=3, n_val=300, method=method,
+            device=device))
+        err = rel_to(eager_dense(tt), gaussian_grid(g, 4).reshape(-1))
+        gate(f"12c {method} Gaussian", err <= 1e-8 and eps[-1] <= 1e-8,
+             rel=err, val_eps=eps[-1])
+        log(f"12c tt_cross_device {method} Gaussian 4 x 12 r3 f64: rel "
+            f"{err:.2e} (gate <= 1e-8), val_eps {eps[-1]:.2e}, {ms:.1f} ms "
+            f"| {smi}")
+    g10 = np.linspace(-1, 1, 10)
+
+    def coupled(X):
+        return torch.exp(-(X ** 2).sum(-1)) / (
+            1.1 + torch.prod(torch.sin(3 * X), dim=-1))
+
+    ms, (_, eps1, r1) = wall_ms(lambda: tt_cross_device_adaptive(
+        gaussian, [g10] * 3, tol=1e-8, rank_schedule=(2, 4, 8),
+        device=device))
+    _, eps2, r2 = tt_cross_device_adaptive(coupled, [g10] * 3, tol=1e-12,
+                                           rank_schedule=(2, 4),
+                                           device=device)
+    gate("12c adaptive escalation", r1 == 2 and eps1[-1] < 1e-8 and r2 == 4
+         and eps2[-1] < 0.5, ranks=(r1, r2), eps=(eps1[-1], eps2[-1]))
+    log(f"12c tt_cross_device_adaptive: the Gaussian stops at rank {r1} "
+        f"(val_eps {eps1[-1]:.2e}, {ms:.1f} ms), the coupled function "
+        f"escalates to rank {r2} (val_eps {eps2[-1]:.2e}) | {smi}")
+
+
+def host_cross(device, smi):
+    """12d: the host cross with its cores on the card: the reference
+    README's 4-D Gaussian by MaxVol (ranks 2, <= 1e-12), DMRGCross and
+    Greedy on one case each of tests/test_cross.py at those tests'
+    tolerances, and tt_integrate of exp(-|x|^2) over [-1, 1]^3 at nquad =
+    30 within 1e-9 of (sqrt(pi) erf 1)^3."""
+    import math
+
+    from ttnx_torch.cross import DMRGCross, Greedy, MaxVol, tt_cross
+    from ttnx_torch.utils.profiling import sync_and_time
+
+    def gauss(X):
+        return np.exp(-np.sum(X ** 2, axis=1))
+
+    g10, g12 = np.linspace(-1, 1, 10), np.linspace(-1, 1, 12)
+    g8 = np.linspace(0.1, 1, 8)
+    exp_sum = np.exp(g8[:, None, None] + g8[None, :, None]
+                     + g8[None, None, :])
+    cases = (("MaxVol README Gaussian 4 x 10 ranks 2", gauss, [g10] * 4,
+              MaxVol(tol=1e-8), 2, gaussian_grid(g10, 4), 1e-12),
+             ("DMRGCross Gaussian 4 x 12 ranks 3", gauss, [g12] * 4,
+              DMRGCross(tol=1e-10), 3, gaussian_grid(g12, 4), 1e-8),
+             ("Greedy exp(x+y+z) 3 x 8", lambda X: np.exp(np.sum(X, axis=1)),
+              [g8] * 3, Greedy(tol=1e-9), 2, exp_sum, 1e-7))
+    for label, f, domain, alg, ranks, want, tol in cases:
+        secs, tt = sync_and_time(lambda: tt_cross(f, domain, alg, ranks=ranks,
+                                                  device=device))
+        err = rel_to(eager_dense(tt), want.reshape(-1))
+        gate(f"12d {label}", err <= tol, rel=err)
+        log(f"12d tt_cross {label} f64, cores on the card: rel {err:.2e} "
+            f"(gate <= {tol:g}), ranks {max(tt.ranks)}, {secs * 1e3:.1f} "
+            f"ms | {smi}")
+    from ttnx_torch.cross import tt_integrate
+
+    exact = (math.sqrt(math.pi) * math.erf(1.0)) ** 3
+    secs, val = sync_and_time(lambda: tt_integrate(
+        gauss, -np.ones(3), np.ones(3), alg=MaxVol(tol=1e-10), nquad=30,
+        device=device))
+    gate("12d tt_integrate", abs(val - exact) <= 1e-9, value=val,
+         exact=exact)
+    log(f"12d tt_integrate exp(-|x|^2) over [-1, 1]^3 nquad=30: error "
+        f"{abs(val - exact):.2e} (gate <= 1e-9), {secs * 1e3:.1f} ms | {smi}")
+
+
+def utilities(device, smi):
+    """12e: a QTT vector on the card through save_tt/load_tt (a file under
+    build/; same subclass and metadata, bit-equal cores on the card),
+    resilient_linsolve with the eager als_linsolve on the CN system (I -
+    h/2 A) x = u0 of entry.sine_mode_problem at the heat scaling (d = 12,
+    h = 1e-6, guess rank 8, f64; a first attempt that diverges to NaN,
+    then solves from perturbed guesses until the residual is below 1e-6;
+    the dense solution within 1e-8 of the per-mode closed form), and
+    assert_finite raising on a core with a NaN."""
+    import os
+
+    from ttnx_torch.core.algebra import add_op, scale_op
+    from ttnx_torch.core.tt import TTVector, id_tto
+    from ttnx_torch.entry import mode_sum, sine_mode_problem
+    from ttnx_torch.ops.qtt import QTTVector, function_to_qttv
+    from ttnx_torch.solvers.als import als_linsolve
+    from ttnx_torch.utils.checkpoint import load_tt, save_tt
+    from ttnx_torch.utils.resilience import resilient_linsolve
+    from ttnx_torch.utils.validation import assert_finite, assert_valid_tt
+
+    q = function_to_qttv(lambda c: np.sin(3 * c[..., 0]) * np.exp(c[..., 1]),
+                         2, 8, ordering="serial", device=device)
+    os.makedirs("build", exist_ok=True)
+    path = os.path.join("build", "phase12_qtt.npz")
+    save_tt(path, q)
+    back = load_tt(path, device=device)
+    same = (isinstance(back, QTTVector) and back.ordering == "serial"
+            and (back.n_dims, back.bits_per_dim) == (2, 8)
+            and all(c.device == device for c in back.cores)
+            and all(torch.equal(a, b) for a, b in zip(q.cores, back.cores)))
+    gate("12e save_tt/load_tt", same, ranks=back.ranks)
+    d, h = 12, 1e-6
+    hg = 1.0 / (2 ** d + 1)
+    p = sine_mode_problem(device, scale=1.0 / hg ** 2, rmax=8)
+    lhs = add_op(id_tto(d, device=device), scale_op(-h / 2, p["A"]))
+    attempts = []
+
+    def solver(A, b, guess, **kw):
+        attempts.append(1)
+        if len(attempts) == 1:
+            return float("nan") * guess
+        return als_linsolve(A, b, guess, **kw)
+
+    ms, x = wall_ms(lambda: resilient_linsolve(
+        lhs, p["u0"], p["guess"], solver, max_residual=1e-6, sweep_count=4,
+        generator=torch.Generator(device=device).manual_seed(0)))
+    assert_valid_tt(x)
+    want = mode_sum(d, hg, p["modes"], [1 / (1 - h / 2 * lam)
+                                         for lam in p["lam"]])
+    err = rel_to(eager_dense(x), want)
+    gate("12e resilient_linsolve", len(attempts) >= 2 and err <= 1e-8,
+         attempts=len(attempts), rel=err)
+    bad = TTVector([c.clone() for c in x.cores])
+    bad.cores[2][0, 0, 0] = float("nan")
+    try:
+        assert_finite(bad)
+    except FloatingPointError:
+        raised = True
+    else:
+        raised = False
+    gate("12e assert_finite", raised)
+    log(f"12e save_tt/load_tt QTTVector 2 x 8 bits on the card: bit-equal "
+        f"| resilient_linsolve(als_linsolve) CN d=12 f64 after a NaN attempt: "
+        f"{len(attempts)} attempts, rel {err:.2e} (gate <= 1e-8), {ms:.1f} "
+        f"ms | assert_finite raises on a NaN core | {smi}")
+
+
+def phase_cross(device):
+    """12: the cross and the utilities on the card, TF32 off; no kernel
+    launches (12f: the launch counts are the same before and after)."""
+    from ttnx_torch.config import matmul_precision
+    from ttnx_torch.kernels.dispatch import launch_counts
+
+    smi = smi_line()
+    before = launch_counts()
+    with matmul_precision("highest"):
+        timed("12a", batched_cross, device, "maxvol", smi)
+        timed("12b", batched_cross, device, "dmrg", smi)
+        timed("12c", device_cross_f64, device, smi)
+        timed("12d", host_cross, device, smi)
+        timed("12e", utilities, device, smi)
+    after = launch_counts()
+    log(f"12f kernel launches during phase 12: "
+        f"{ {k: after[k] - before[k] for k in after} } (all 0)")
+    if after != before:
+        raise RuntimeError(f"the cross launched kernels: {before} -> "
+                           f"{after}")
+
+
 def summarize(rows, path_rows, counts):
     """One JSON row per kernel at the type and rank where its path runs
     it: f32 at rank 64 (B3, B9, B10 at 16; B5 and B6, right, at B =
@@ -2239,6 +2542,7 @@ def main() -> int:
                                           device)
     later += [contraction_counts, timed("10", phase_qtt_path, device)]
     timed("11", phase_eager_tier, device)
+    timed("12", phase_cross, device)
     for path_counts in later:
         for name, n in path_counts.items():
             if name not in CN_KERNELS:

@@ -42,7 +42,9 @@ gives the CPU's realized ranks and state (1e-10, f64). The eager tier runs
 no kernel: ``thin_svd`` keeps f32 singular vectors orthonormal to 5e-6,
 an eager ALS solve and ``expm_multiply`` on the card give the CPU's
 results (1e-10, f64), and the port's LOBPCG finds a seeded top eigenpair
-at M = 4096 in f32 (1e-5).
+at M = 4096 in f32 (1e-5). The cross runs no kernel either: the batched
+device maxvol gives the CPU's rows exactly, and a checkpoint round trip on
+the card keeps the bits.
 """
 
 import numpy as np
@@ -1010,3 +1012,43 @@ def test_lobpcg_on_a_shifted_matrix_in_float32(cuda):
     assert abs(float(theta[0]) - 1.5) <= 1.5e-5
     overlap = abs(float(U[:, 0].double().cpu() @ torch.as_tensor(q[:, -1])))
     assert overlap >= 1 - 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The cross and the checkpoints on the card: no kernel
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_batched_maxvol_on_the_card_gives_the_cpu_rows(cuda, dtype):
+    """``maxvol_fixed`` on a seeded stack of 16 tall matrices at the
+    Wishart cross's shape (64 x 8) and a ragged one (45 x 7): the card's
+    rows (its rectangular batched LU, its pseudo-inverse through
+    ``thin_svd`` and its on-card swaps) are the CPU's, in f64 and f32."""
+    from ttnx_torch.cross.device import maxvol_fixed
+
+    rng = np.random.default_rng(15)
+    for n, r in ((64, 8), (45, 7)):
+        a = torch.as_tensor(rng.standard_normal((16, n, r)), dtype=dtype)
+        ref = maxvol_fixed(a, 1.05, maxiter=100)
+        got = maxvol_fixed(a.to(cuda), 1.05, maxiter=100)
+        assert got.is_cuda and torch.equal(got.cpu(), ref)
+
+
+@pytest.mark.cuda
+def test_save_and_load_on_the_card(cuda, tmp_path):
+    """A QTT vector on the card saved and loaded onto the card: the same
+    subclass, metadata and bits."""
+    from ttnx_torch.ops.qtt import QTTVector, function_to_qttv
+    from ttnx_torch.utils.checkpoint import load_tt, save_tt
+
+    q = function_to_qttv(lambda c: np.sin(c[..., 0]) * c[..., 1], 2, 5,
+                         ordering="serial", device=cuda)
+    p = str(tmp_path / "q.npz")
+    save_tt(p, q)
+    back = load_tt(p, device=cuda)
+    assert isinstance(back, QTTVector) and back.ordering == "serial"
+    assert (back.n_dims, back.bits_per_dim) == (2, 5)
+    assert all(c.is_cuda for c in back.cores)
+    assert all(torch.equal(a, b) for a, b in zip(q.cores, back.cores))

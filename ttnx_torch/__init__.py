@@ -7,9 +7,12 @@ step, the batched ALS, the DMRG and TDVP scan tier, the last kernels
 contractions of ``ttnx_torch.kernels.contraction``), the QTT constructor
 library (operators, function encodings, multi-dimensional QTT wrappers,
 the quantics Fourier transform, interpolation) and the scan-tier ALS
-eigensolve and MALS, and the eager solver tier (ALS, MALS, DMRG, the
+eigensolve and MALS, the eager solver tier (ALS, MALS, DMRG, the
 TT-Krylov methods, TDVP and the four time steppers) with its config
-objects and telemetry. Layouts match
+objects and telemetry, and TT-cross with TT quadrature (the host MaxVol,
+Greedy and DMRG cross; the device MaxVol and DMRG cross with a batch
+axis) with the checkpoint, validation, resilience and profiling
+utilities. Layouts match
 ``ttnx``: vector cores ``(r_left, n, r_right)``, operator cores
 ``(r_left, n_out, n_in, r_right)``, padded stacks ``(d, R, n, R)`` / ``(d,
 RA, n, n, RA)``, masks ``(d+1, R)``, big-endian bits. Every device is
@@ -24,6 +27,9 @@ from ttnx_torch.core.canonical import orthogonalize, svdtrunc, tt_round
 from ttnx_torch.core.decomp import ttv_decomp, ttv_to_tensor
 from ttnx_torch.core.tt import (TTOperator, TTVector, id_tto, r_and_d_to_rks,
                                 rand_tt, zeros_tt)
+from ttnx_torch.cross.cross import (DMRG, DMRGCross, Greedy, MaxVol,
+                                    MaxVolPivot, RandomPivot, tt_cross,
+                                    tt_integrate)
 from ttnx_torch.kernels.dispatch import launch_counts, reset_launch_counts
 from ttnx_torch.ops.fourier import fourier_qtto, reverse_qtt_bits
 from ttnx_torch.ops.interpolation import (interpolating_qtt,
@@ -80,7 +86,9 @@ from ttnx_torch.solvers.steppers import (crank_nicholson_method,
 from ttnx_torch.solvers.tdvp import tdvp, tdvp2
 from ttnx_torch.solvers.tdvp_scan import (tdvp1_scan, tdvp1_step, tdvp2_scan,
                                           tdvp2_step)
-from ttnx_torch.utils.profiling import SolverTelemetry
+from ttnx_torch.utils.checkpoint import load_tt, save_tt
+from ttnx_torch.utils.convert import from_reference_layout, to_ttvector
+from ttnx_torch.utils.profiling import SolverTelemetry, Timer
 
 __all__ = [
     "TTVector", "TTOperator", "zeros_tt", "rand_tt", "id_tto",
@@ -116,5 +124,7 @@ __all__ = [
     "euler_method", "implicit_euler_method", "crank_nicholson_method",
     "rk4_method", "krylov_linsolve", "expm_multiply", "expintegrator_tt",
     "ALSConfig", "DMRGConfig", "KrylovConfig", "MALSConfig", "TDVPConfig",
-    "matmul_precision", "SolverTelemetry",
+    "matmul_precision", "SolverTelemetry", "MaxVol", "Greedy", "DMRGCross",
+    "DMRG", "MaxVolPivot", "RandomPivot", "tt_cross", "tt_integrate",
+    "to_ttvector", "from_reference_layout", "save_tt", "load_tt", "Timer",
 ]

@@ -39,6 +39,11 @@ with the right-hand side of a sampled sine, which is the exact solution).
 tier: a scaled Dirichlet Laplacian and a sum of its eigenmodes, whose
 evolution under any stepper is a per-mode factor; ``mode_sum`` is its
 numpy oracle.
+
+``wishart_cross_problem(device, batch=..., method=...)`` is the batched
+device cross of ``bench.py``'s cross cells: B Wishart Laplace-transform
+integrands of one parameter each, for ``maxvol_cross_device`` (B = 16)
+or ``dmrg_cross_device`` (B = 8).
 """
 
 from __future__ import annotations
@@ -51,6 +56,7 @@ from ttnx_torch.core.algebra import add_op, scale_op
 from ttnx_torch.core.canonical import tt_round
 from ttnx_torch.core.tt import (TTVector, id_tto, increase_ranks,
                                 r_and_d_to_rks, rand_tt)
+from ttnx_torch.cross.device import dmrg_cross_device, maxvol_cross_device
 from ttnx_torch.ops.operators import (heisenberg_xyz_tto, laplacian,
                                       toeplitz_to_qtto)
 from ttnx_torch.ops.qtt import function_to_qtt, qtt_sin
@@ -65,7 +71,7 @@ __all__ = ["entry", "flagship_cn_step", "three_mode_state",
            "contraction_problem", "norm_keeping_contraction_problem",
            "matmul_ceiling_problem", "norm_keeping_matmul_problem",
            "als_eig_problem", "mals_problem", "sine_mode_problem",
-           "mode_sum"]
+           "mode_sum", "wishart_cross_problem"]
 
 
 def flagship_cn_step(device, rmax: int = 16, d: int = 12, h: float = 1e-9,
@@ -434,3 +440,56 @@ def norm_keeping_matmul_problem(device, batch: int = 4096, m: int = 128,
     w = blocks[perm] * signs
     return {k_: torch.as_tensor(np.ascontiguousarray(v)).to(device, dtype)
             for k_, v in (("x", x), ("w", w))}
+
+
+# 5 x 5 matrices a cuSOLVER batched eigvalsh call: it refused 32768 of
+# them (CUSOLVER_STATUS_INVALID_VALUE; 24576 passed; H100, CUDA 12.8), the
+# DMRG cross's superblock at B = 8
+EIGVALSH_CHUNK = 16384
+
+# the 5 x 5 covariance of the Wishart cross workload (bench.py:800-806;
+# reference test_tt_cross_interpolation.jl:147-186)
+WISHART_SIGMA = np.array([
+    [1.0, 0.3, 0.2, 0.1, 0.18],
+    [0.3, 1.2, 0.25, 0.15, 0.22],
+    [0.2, 0.25, 0.9, 0.2, 0.28],
+    [0.1, 0.15, 0.2, 1.1, 0.19],
+    [0.18, 0.22, 0.28, 0.19, 1.05],
+])
+
+
+def wishart_cross_problem(device, *, batch: int, method: str):
+    """The batched device cross of ``bench.py``'s ``batched_cross_per_s``
+    (``method="maxvol"``, ``batch=16``) and ``dmrg_cross_device_per_s``
+    (``"dmrg"``, ``batch=8``) at the bench's size, in float32 (run it with
+    TF32 off): d = 5, the grid ``linspace(0, 2, 8)`` in every dimension,
+    ``sigma = 2 Sigma``, one parameter ``theta = linspace(0.5, 1.5,
+    batch)`` a problem, and the integrand ``prod(eigvalsh(I + theta
+    sqrt(c) sigma sqrt(c)))^(-p)`` with ``p = (d + 2) / 2`` (the bench's
+    eigvalsh form of ``det(I + theta sigma diag(c))^(-p)``, at most
+    EIGVALSH_CHUNK matrices a call), rank 8, 3 iterations, 500 validation
+    points. Returns a dict: ``fn``, the maker's ``fn(generator)``;
+    ``seed``, the generator seed (the bench's key); ``f_idx`` and
+    ``thetas``; ``gate``, the largest last validation error the bench
+    accepts (1e-3)."""
+    dtype = torch.float32
+    d = 5
+    p = (d + 2) / 2
+    sigma = torch.as_tensor(2 * WISHART_SIGMA, dtype=dtype, device=device)
+    grid = torch.linspace(0.0, 2.0, 8, dtype=dtype, device=device)
+    eye = torch.eye(d, dtype=dtype, device=device)
+    thetas = torch.linspace(0.5, 1.5, batch, dtype=dtype, device=device)
+
+    def f_idx(indices):
+        s = torch.sqrt(torch.clamp(grid[indices], min=0.0))
+        m = eye + thetas[:, None, None, None] * (
+            s[..., :, None] * sigma * s[..., None, :])
+        w = torch.cat([torch.linalg.eigvalsh(part) for part in
+                       m.reshape(-1, d, d).split(EIGVALSH_CHUNK)])
+        return torch.prod(w, dim=-1).reshape(indices.shape[:-1]) ** (-p)
+
+    maker = {"maxvol": maxvol_cross_device, "dmrg": dmrg_cross_device}[method]
+    fn = maker(f_idx, [8] * d, 8, n_iters=3, dtype=dtype, n_val=500,
+               batch=batch)
+    return dict(fn=fn, seed={"maxvol": 2, "dmrg": 4}[method], f_idx=f_idx,
+                thetas=thetas, gate=1e-3)
