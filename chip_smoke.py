@@ -56,8 +56,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 3e. B2 and B6 by route: B2 on the CN step's chains at ranks 16, 32 and
    64 and B6 on phase 5's two calls at B = 512, timed (CUDA events)
    interleaved: new route, "staged", "staged", new route; then the device
-   kernel time a call (torch.profiler) of the CN r16 and r64 steps and of
-   the explicit batched call with the B2/B6 route forced either way.
+   kernel time a call (torch.profiler) of the CN r64 step with the B2
+   route forced either way.
 3f. B1 and B8 by route: B1 on the CN step's stacks at RB = 64, 128 and
    256 and B8 on the third dmrg_eig_sweep's chains at (d, R) = (10, 16)
    and (12, 64), right and left, timed (CUDA events) interleaved: new route
@@ -190,6 +190,28 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    after a diverging attempt (<= 1e-8 of the closed form) and
    assert_finite on a NaN core; (f) the launch counts are the same before
    and after the phase.
+
+13. The distributed layer (phase wall time logged, and each sub-phase's;
+   every line with the card's name and power limit): (a) a one-rank NCCL
+   process group in this process: psum, psum_scatter and all_gather on
+   its mesh keep a CUDA tensor (route "nccl"), then make_cn_step_dist on
+   phase 4's problem at r64 (f32, cg_fused, gram_chain, 2 half-sweeps,
+   the default 48 CG iterations) takes the replicated rounding: 8 steps
+   against the closed form (rel <= 1e-3), the residual (<= 1e-2), the
+   8-step state against make_cn_step at the same settings (rel <= 1e-4),
+   launches a step B1 1 on route "grid", B2 1 + 1 on "cluster", B4 22 on
+   "resident"; (b) the same step with force_tp=True on 2 and then 4 gloo
+   ranks spawned on cuda:0 (CUDA tensors, route "gloo-cuda"): every rank's
+   8-step state against 13a's (rel <= 1e-4) and the closed form, its own
+   launches a step (B2 1 + 1, B4 22, B1 0) and ms/step beside 13a's; (c)
+   batched_als_linsolve on a (dp = 2, tp = 1) mesh of the 2 ranks: 8
+   problems of entry.batched_als_problem's d = 12, rank-64 heat solve
+   (right-hand sides (1 + 0.2 k) u), cg_fused, each solution against the
+   single-device batched_als_sweeps (rel <= 1e-4), element 0's residual
+   (<= 1e-2); (d) entry.dryrun_multichip on a (dp = 2, tp = 2) mesh of the
+   4 ranks in float64: all 7 legs under the JAX package's thresholds. The
+   ranks' launches add to this process's in the totals; any rank's
+   failure fails the run.
 
 The last two lines are a JSON summary of the kernels (13 rows: errors,
 times, bound, library time; ``kernel_route`` the wrapper's route where it
@@ -1437,11 +1459,7 @@ def device_ms(run, n, part=""):
 def phase_env_routes(device):
     """3e: B2 (r16, r32, r64, right and left) and B6 (B = BATCH) timed by
     route, interleaved (new, staged, staged, new), then the device time of
-    the CN r16 and r64 steps and of the explicit batched call with the
-    B2/B6 route forced each way (torch.profiler)."""
-    from ttnx_torch.entry import batched_als_problem
-    from ttnx_torch.solvers.als_scan_batched import als_sweeps_b
-
+    the CN r64 step with the B2 route forced each way (torch.profiler)."""
     cases = []
     for rmax in RANKS:
         inputs = capture_inputs(rmax, device, torch.float32)
@@ -1462,23 +1480,17 @@ def phase_env_routes(device):
                                      3))
         log(f"interleaved {label} ({new}, staged, staged, {new}): "
             f"{', '.join(f'{t:.4f}' for t in times)} ms")
-    runs = []
-    for rmax in (16, 64):
-        step_fn, us, _ = setup(rmax, device)
-        runs.append((f"cn_step d={D} r{rmax}", lambda f=step_fn, u=us: f(u),
-                     N_STEPS, "cluster"))
-    p = batched_als_problem(device, batch=BATCH, rmax=64, d=D, h=H_STEP)
-    runs.append((f"batched explicit_kernel B={BATCH}", lambda: als_sweeps_b(
-        p["lhs_stack"], p["b_batch"], p["x_batch"], p["masks"], 2,
-        cg_iters=CG_ITERS, solver="cg_fused"), 1, "resident"))
-    for label, run, n, new in runs:
-        for route in (new, "staged"):
-            with forced_env_route(route):
-                wall, dev, kernels, env = device_ms(run, n, "ttnx_env")
-            log(f"profile {label}, B2/B6 route {route}: wall {wall:.3f} ms,"
-                f" device kernels {dev:.3f} ms a call ({kernels:.0f} "
-                f"kernels; B2/B6 {env:.3f} ms), busy share "
-                f"{dev / wall:.3f}")
+    # the profiles of the CN r16 step and of the explicit batched call
+    # (PR 11's measurement, PERF.md) are cut to keep the run in its time
+    step_fn, us, _ = setup(64, device)
+    for route in ("cluster", "staged"):
+        with forced_env_route(route):
+            wall, dev, kernels, env = device_ms(lambda: step_fn(us), N_STEPS,
+                                                "ttnx_env")
+        log(f"profile cn_step d={D} r64, B2/B6 route {route}: wall "
+            f"{wall:.3f} ms, device kernels {dev:.3f} ms a call "
+            f"({kernels:.0f} kernels; B2/B6 {env:.3f} ms), busy share "
+            f"{dev / wall:.3f}")
 
 
 @contextlib.contextmanager
@@ -2462,6 +2474,343 @@ def phase_cross(device):
                            f"{after}")
 
 
+# ---------------------------------------------------------------------------
+# The distributed layer (slice 16)
+# ---------------------------------------------------------------------------
+
+# 13a's and 13b's CN step (phase 4's problem at r64), 13c's batch over dp,
+# and the longest wait for a rank
+DIST_RMAX, DIST_SWEEPS = 64, 2
+DIST_BATCH, DIST_DP = 8, 2
+RANK_TIMEOUT = 300.0
+# launches a step of the distributed CN step: the ALS solve's B2 and B4 on
+# every rank; B1 only where the rounding runs replicated (13a)
+DIST_STEP = {"right_env_chain_fused": 1, "left_env_chain_fused": 1,
+             "cg_matfree_fused": 2 * (D - 1)}
+
+
+def heat_operator(device):
+    """Phase 4's operator: the interior heat Laplacian ``-(1/hg^2)
+    tridiag(-1, 2, -1)`` on ``hg = 1/(2^D + 1)``."""
+    from ttnx_torch.ops.operators import toeplitz_to_qtto
+
+    hg = 1.0 / (2 ** D + 1)
+    return (-1.0 / hg ** 2) * toeplitz_to_qtto(2.0, -1.0, -1.0, D,
+                                               device=device)
+
+
+def dist_cn_step(A, mesh, force_tp):
+    """``make_cn_step_dist`` on phase 4's problem (``A`` from
+    :func:`heat_operator`) at rank DIST_RMAX (f32, ``cg_fused``,
+    ``gram_chain``, DIST_SWEEPS half-sweeps): ``(step_fn, packed three-mode
+    state, unpack)``."""
+    from ttnx_torch.entry import three_mode_state
+    from ttnx_torch.parallel.round_dist import make_cn_step_dist
+
+    hg = 1.0 / (2 ** D + 1)
+    step, pack, unpack = make_cn_step_dist(
+        A, H_STEP, DIST_RMAX, (2,) * D,
+        (1,) + (DIST_RMAX,) * (D - 1) + (1,), mesh, dtype=torch.float32,
+        sweep_count=DIST_SWEEPS, solver="cg_fused",
+        round_method="gram_chain", force_tp=force_tp)
+    return step, pack(three_mode_state(D, hg, A.device)), unpack
+
+
+def dist_step_run(step, us, unpack):
+    """One step for its launch counts, then :func:`timed_chain`; returns
+    the launches of that step, of the whole run, ms/step and the dense
+    states after 7 and 8 steps."""
+    from ttnx_torch.kernels.dispatch import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    one = step(us)
+    torch.cuda.synchronize()
+    per_step = {k: v for k, v in launch_counts().items() if v}
+    if one.shape != us.shape or not bool(torch.isfinite(one).all()):
+        raise RuntimeError(f"distributed CN step: not a finite "
+                           f"{tuple(us.shape)} stack")
+    ms, v7, v8 = timed_chain(step, us)
+    return dict(per_step=per_step, launches=launch_counts(), ms=ms,
+                d7=dense(unpack, v7), d8=dense(unpack, v8))
+
+
+def rounding_ms(A, us, mesh, sharded, calls=5):
+    """ms a call of the distributed step's rounding alone, on the chain its
+    first step's right-hand side gives: ``I + h/2 A`` packed and applied to
+    the packed state ``us``, rounded to the step's output ranks, sharded
+    over ``tp`` or replicated (``tt_round_gram``, B1). Launches here are
+    not counted."""
+    from ttnx_torch.core.algebra import add_op, scale_op
+    from ttnx_torch.core.tt import id_tto
+    from ttnx_torch.parallel.round_dist import (gram_chain_round_dist,
+                                                shard_chain)
+    from ttnx_torch.solvers.als_scan import pack_op, rank_masks
+    from ttnx_torch.solvers.round_scan import (matvec_padded, round_masks,
+                                               tt_round_gram)
+
+    f32 = torch.float32
+    rhs = add_op(id_tto(D, dtype=f32, device=us.device),
+                 scale_op(H_STEP / 2, A.astype(f32)))
+    big = matvec_padded(pack_op(rhs, max(rhs.ranks)), us)
+    # the step's output ranks: the feasible ranks at DIST_RMAX
+    out_rks = round_masks((1,) + (DIST_RMAX,) * (D - 1) + (1,), DIST_RMAX,
+                          (2,) * D)
+    masks_out = rank_masks(out_rks, DIST_RMAX, dtype=f32, device=us.device)
+    if sharded:
+        big = shard_chain(big, mesh, "tp")
+
+        def run():
+            return gram_chain_round_dist(big, DIST_RMAX, masks_out, mesh)
+    else:
+        def run():
+            return tt_round_gram(big, DIST_RMAX, masks_out)
+    sec, _ = timed_calls(run, calls)
+    return sec * 1e3
+
+
+def cn_tp_rank(ctx, shape):
+    """13b on one rank: the step with its rounding sharded over ``tp``."""
+    from ttnx_torch.config import matmul_precision
+    from ttnx_torch.parallel.comm import route
+
+    mesh = ctx.meshes[shape]
+    with matmul_precision("highest"):
+        A = heat_operator(ctx.device)
+        step, us, unpack = dist_cn_step(A, mesh, True)
+        out = dist_step_run(step, us, unpack)
+        out["round_ms"] = rounding_ms(A, us, mesh, True)
+    out["route"] = route(mesh, "tp", us)
+    return out
+
+
+def batched_dp_problem(device):
+    """13c's problems: the operator of ``entry.batched_als_problem`` (d =
+    D, rank 64), DIST_BATCH right-hand sides ``(1 + 0.2 k) u`` of its
+    rank-64 state ``u``, which is also every guess."""
+    from ttnx_torch.entry import batched_als_problem
+    from ttnx_torch.solvers.als_scan import unpack_tt
+
+    p = batched_als_problem(device, batch=1, rmax=64, d=D, h=H_STEP)
+    u = unpack_tt(p["b_batch"][0], p["u_rks"])
+    return p["lhs"], [(1 + 0.2 * k) * u for k in range(DIST_BATCH)], u
+
+
+def batched_dp_rank(ctx, shape):
+    """13c on one rank: ``batched_als_linsolve`` over ``dp``."""
+    from ttnx_torch.config import matmul_precision
+    from ttnx_torch.core.decomp import ttv_to_tensor
+    from ttnx_torch.kernels.dispatch import launch_counts, reset_launch_counts
+    from ttnx_torch.parallel.batch import batched_als_linsolve
+    from ttnx_torch.parallel.comm import route
+
+    mesh = ctx.meshes[shape]
+    with matmul_precision("highest"):
+        lhs, bs, u = batched_dp_problem(ctx.device)
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        outs = batched_als_linsolve(mesh, lhs, bs, [u] * len(bs),
+                                    sweep_count=2, rmax=64,
+                                    solver="cg_fused")
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+    return dict(launches=launch_counts(), sec=sec,
+                route=route(mesh, "dp", bs[0].cores[0]),
+                dense=[ttv_to_tensor(x).reshape(-1).double() for x in outs])
+
+
+def dryrun_rank(ctx):
+    """13d on one rank: ``entry.dryrun_multichip`` in float64."""
+    from ttnx_torch.entry import dryrun_multichip
+    from ttnx_torch.kernels.dispatch import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    errs = dryrun_multichip(ctx.device)
+    torch.cuda.synchronize()
+    return dict(errs=errs, launches=launch_counts())
+
+
+def check_step(label, run, exact, hg):
+    """The CN gates on a distributed step's run; returns (traj rel,
+    residual)."""
+    rel = float(np.linalg.norm(run["d8"] - exact) / np.linalg.norm(exact))
+    res = cn_residual(run["d8"], run["d7"], hg, H_STEP)
+    if not (np.isfinite(rel) and rel <= 1e-3 and res <= 1e-2):
+        raise RuntimeError(f"{label} failed its gates: rel={rel:.3e} "
+                           f"residual={res:.3e}")
+    return rel, res
+
+
+def add_counts(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def dist_nccl(device, smi, exact, hg, total):
+    """13a: a one-rank NCCL mesh in this process; the collectives on it and
+    the replicated distributed CN step against ``make_cn_step``."""
+    import torch.distributed as dist
+
+    from ttnx_torch.kernels import env_chain, gram, local_cg_mf
+    from ttnx_torch.parallel.batch import make_mesh
+    from ttnx_torch.parallel.comm import all_gather, psum, psum_scatter, route
+    from ttnx_torch.solvers.round_scan import make_cn_step
+
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(1, 1, device=device)
+        x = torch.arange(24.0, device=device).reshape(2, 3, 4)
+        coll = {axis: route(mesh, axis, x) for axis in ("dp", "tp")}
+        same = all(torch.equal(f(x, mesh, "tp", *a), x) for f, a in (
+            (psum, ()), (psum_scatter, (1,)), (all_gather, (2,))))
+        if coll != {"dp": "nccl", "tp": "nccl"} or not same:
+            raise RuntimeError(f"13a collectives: routes {coll}, values "
+                               f"kept {same}")
+        A = heat_operator(device)
+        step, us, unpack = dist_cn_step(A, mesh, None)
+        run = dist_step_run(step, us, unpack)
+        run["round_ms"] = rounding_ms(A, us, mesh, False)
+    finally:
+        dist.destroy_process_group()
+    want = dict(DIST_STEP, gram_chain_fused=1)
+    routes = {"B1": gram.gram_chain_fused.route,
+              "B2": {env_chain.right_env_chain_fused.route,
+                     env_chain.left_env_chain_fused.route},
+              "B4": local_cg_mf.cg_matfree_fused.route}
+    if run["per_step"] != want or routes != {"B1": "grid",
+                                             "B2": {"cluster"},
+                                             "B4": "resident"}:
+        raise RuntimeError(f"13a: launches/step {run['per_step']}, expected "
+                           f"{want}; routes {routes}")
+    add_counts(total, run["launches"])
+    ref_step, ref_pack, ref_unpack = make_cn_step(
+        A, H_STEP, rmax=DIST_RMAX, dims=(2,) * D,
+        u_rks=(1,) + (DIST_RMAX,) * (D - 1) + (1,), dtype=torch.float32,
+        sweep_count=DIST_SWEEPS, solver="cg_fused", round_method="gram_chain")
+    _, ref8 = run_chain(ref_step, us, N_STEPS)
+    rel, res = check_step("13a", run, exact, hg)
+    agree = float(np.linalg.norm(run["d8"] - dense(ref_unpack, ref8))
+                  / np.linalg.norm(run["d8"]))
+    log(f"13a make_cn_step_dist d={D} r{DIST_RMAX} f32 on a one-rank NCCL "
+        f"mesh (replicated rounding): {run['ms']:.3f} ms/step (the "
+        f"rounding alone {run['round_ms']:.3f} ms) | traj rel "
+        f"{rel:.3e} (<= 1e-3) residual {res:.3e} (<= 1e-2) | vs "
+        f"make_cn_step 8-step rel {agree:.3e} (<= 1e-4) | launches/step "
+        f"{run['per_step']} | kernel routes {routes} | collectives on the "
+        f"mesh: {routes_line(coll.values())} | {smi}")
+    if agree > 1e-4:
+        raise RuntimeError(f"13a: 8-step state {agree:.3e} from "
+                           f"make_cn_step")
+    return run
+
+
+def routes_line(seen):
+    """How each collective runs on the routes ``seen``."""
+    how = {"nccl": "psum all_reduce, psum_scatter reduce_scatter_tensor, "
+                   "all_gather all_gather_into_tensor (NCCL)",
+           "gloo-cuda": "psum all_reduce, psum_scatter all_reduce + slice, "
+                        "all_gather all_reduce of a zero-padded buffer "
+                        "(gloo, CUDA tensors staged through the host)"}
+    return "; ".join(f"{r}: {how[r]}" for r in sorted(set(seen)))
+
+
+def phase_distributed(device):
+    """13: the distributed layer on the card; returns the launches of the
+    distributed runs, this process's and every rank's."""
+    from ttnx_torch.core.canonical import orthogonalize
+    from ttnx_torch.core.decomp import ttv_to_tensor
+    from ttnx_torch.parallel.batch import batched_als_sweeps
+    from ttnx_torch.parallel.launch import RankPool
+    from ttnx_torch.solvers.als_scan import (pack_op, pack_tt, rank_masks,
+                                             unpack_tt)
+
+    smi = smi_line()
+    hg = 1.0 / (2 ** D + 1)
+    exact = cn_analytic(D, hg, H_STEP, N_STEPS)
+    total = {}
+    t0 = time.perf_counter()
+    run_a = timed("13a", dist_nccl, device, smi, exact, hg, total)
+
+    def tp_step(pool, tp):
+        runs = pool.run("chip_smoke:cn_tp_rank", (1, tp))
+        for rank, run in enumerate(runs):
+            if run["per_step"] != DIST_STEP:
+                raise RuntimeError(f"13b tp={tp} rank {rank}: launches/step "
+                                   f"{run['per_step']}, expected {DIST_STEP}")
+            rel, res = check_step(f"13b tp={tp} rank {rank}", run, exact, hg)
+            agree = float(np.linalg.norm(run["d8"] - run_a["d8"])
+                          / np.linalg.norm(run_a["d8"]))
+            if agree > 1e-4:
+                raise RuntimeError(f"13b tp={tp} rank {rank}: 8-step state "
+                                   f"{agree:.3e} from 13a's")
+            add_counts(total, run["launches"])
+            log(f"13b tp={tp} rank {rank}/{tp} (gloo, cuda:0): "
+                f"{run['ms']:.3f} ms/step, the sharded rounding alone "
+                f"{run['round_ms']:.3f} ms (13a one rank {run_a['ms']:.3f}, "
+                f"{run_a['round_ms']:.3f}) |"
+                f" vs 13a 8-step rel {agree:.3e} (<= 1e-4) | traj rel "
+                f"{rel:.3e} (<= 1e-3) residual {res:.3e} (<= 1e-2) | "
+                f"launches/step {run['per_step']} | {smi}")
+        log(f"13b tp={tp} collectives: "
+            f"{routes_line([r['route'] for r in runs])}")
+
+    with RankPool(2, device=device, meshes=((1, 2), (DIST_DP, 1)),
+                  timeout=RANK_TIMEOUT) as pool:
+        log(f"13b/13c: 2 gloo ranks on {device} up in "
+            f"{time.perf_counter() - t0:.1f} s of phase 13")
+        timed("13b tp=2", tp_step, pool, 2)
+        t1 = time.perf_counter()
+        runs = pool.run("chip_smoke:batched_dp_rank", (DIST_DP, 1))
+        lhs, bs, u = batched_dp_problem(device)
+        x0 = orthogonalize(u, 0)
+        ref = batched_als_sweeps(
+            pack_op(lhs, max(lhs.ranks)),
+            torch.stack([pack_tt(b, max(b.ranks)) for b in bs]),
+            torch.stack([pack_tt(x0, 64)] * len(bs)),
+            rank_masks(x0.ranks, 64, dtype=torch.float32, device=device),
+            2, solver="cg_fused")
+        ref = [dense(lambda s: unpack_tt(s, x0.ranks), r) for r in ref]
+        c = H_STEP / (2 * hg ** 2)
+        b0 = ttv_to_tensor(bs[0]).reshape(-1).double().cpu().numpy()
+        for rank, run in enumerate(runs):
+            worst = max(float(np.linalg.norm(g.astype(np.float64) - r)
+                              / np.linalg.norm(r))
+                        for g, r in zip(run["dense"], ref))
+            x0s = np.asarray(run["dense"][0], dtype=np.float64)
+            lhs0 = x0s + c * (2 * x0s - np.pad(x0s[1:], (0, 1))
+                              - np.pad(x0s[:-1], (1, 0)))
+            res = float(np.linalg.norm(lhs0 - b0) / np.linalg.norm(b0))
+            add_counts(total, run["launches"])
+            log(f"13c batched_als_linsolve dp={DIST_DP} rank {rank}: "
+                f"{DIST_BATCH} problems d={D} r64 f32 cg_fused in "
+                f"{run['sec'] * 1e3:.1f} ms | worst per-problem rel to "
+                f"single-device batched_als_sweeps {worst:.3e} (<= 1e-4) | "
+                f"residual[0] {res:.3e} (<= 1e-2) | launches "
+                f"{ {k: v for k, v in run['launches'].items() if v} } | "
+                f"{routes_line([run['route']])} | {smi}")
+            if not (worst <= 1e-4 and res <= 1e-2):
+                raise RuntimeError(f"13c rank {rank} failed its gates: "
+                                   f"worst={worst:.3e} residual={res:.3e}")
+        log(f"phase 13c: {time.perf_counter() - t1:.1f} s wall")
+    t1 = time.perf_counter()
+    with RankPool(4, device=device, meshes=((1, 4),),
+                  timeout=RANK_TIMEOUT) as pool:
+        log(f"13b/13d: 4 gloo ranks on {device} up in "
+            f"{time.perf_counter() - t1:.1f} s")
+        timed("13b tp=4", tp_step, pool, 4)
+        t1 = time.perf_counter()
+        runs = pool.run("chip_smoke:dryrun_rank")
+        for rank, run in enumerate(runs):
+            add_counts(total, run["launches"])
+        log(f"13d dryrun_multichip (dp=2, tp=2) f64, 4 gloo ranks on "
+            f"{device}: every leg under its threshold on every rank; rank 0 "
+            f"{runs[0]['errs']} | {smi}")
+        log(f"phase 13d: {time.perf_counter() - t1:.1f} s wall")
+    log(f"13 launches (this process and every rank): "
+        f"{ {k: v for k, v in total.items() if v} }")
+    return total
+
+
 def summarize(rows, path_rows, counts):
     """One JSON row per kernel at the type and rank where its path runs
     it: f32 at rank 64 (B3, B9, B10 at 16; B5 and B6, right, at B =
@@ -2547,6 +2896,7 @@ def main() -> int:
         for name, n in path_counts.items():
             if name not in CN_KERNELS:
                 counts[name] = counts.get(name, 0) + n
+    add_counts(counts, timed("13", phase_distributed, device))
     missing = [k for k in KERNELS if counts.get(k, 0) == 0]
     if missing:
         raise RuntimeError(f"the main paths launched no {missing}")

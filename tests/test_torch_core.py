@@ -6,6 +6,7 @@ results are compared as dense tensors (gauge-free) in float64 to 1e-12.
 """
 
 import ast
+import inspect
 import math
 import re
 from pathlib import Path
@@ -339,6 +340,20 @@ def test_convert_round_trip(vecs):
 def test_public_names():
     for name in ttnx_torch.__all__:
         assert hasattr(ttnx_torch, name), name
+
+
+# ttnx's manifold utilities wait for the port's autograd interop
+MANIFOLD = {"ttvector_manifold", "rayleigh_quotient",
+            "manifold_gradient_descent"}
+
+
+def test_every_public_name_of_ttnx_resolves_on_the_port():
+    names = {n for n in dir(ttnx) if not n.startswith("_")
+             and not inspect.ismodule(getattr(ttnx, n))}
+    missing = sorted(n for n in names - MANIFOLD
+                     if not hasattr(ttnx_torch, n))
+    assert not missing, missing
+    assert not MANIFOLD & set(ttnx_torch.__all__)
 
 
 # ---------------------------------------------------------------------------

@@ -44,7 +44,8 @@ an eager ALS solve and ``expm_multiply`` on the card give the CPU's
 results (1e-10, f64), and the port's LOBPCG finds a seeded top eigenpair
 at M = 4096 in f32 (1e-5). The cross runs no kernel either: the batched
 device maxvol gives the CPU's rows exactly, and a checkpoint round trip on
-the card keeps the bits.
+the card keeps the bits. The distributed layer's collectives run on CUDA
+tensors in two gloo ranks on the card (the ``gloo-cuda`` route), exactly.
 """
 
 import numpy as np
@@ -1052,3 +1053,29 @@ def test_save_and_load_on_the_card(cuda, tmp_path):
     assert (back.n_dims, back.bits_per_dim) == (2, 5)
     assert all(c.is_cuda for c in back.cores)
     assert all(torch.equal(a, b) for a, b in zip(q.cores, back.cores))
+
+
+# ---------------------------------------------------------------------------
+# The distributed layer's collectives on CUDA tensors: no kernel
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_collectives_on_cuda_tensors_over_gloo(cuda):
+    """Two gloo ranks on the card: ``psum``, ``psum_scatter`` and
+    ``all_gather`` of CUDA tensors take the ``gloo-cuda`` route (all
+    through ``all_reduce``) and give the numpy sums and concatenations
+    exactly (small integers in float64)."""
+    from ttnx_torch.parallel.launch import RankPool
+
+    rng = np.random.default_rng(16)
+    xs = [rng.integers(-50, 50, size=(3, 4, 2)).astype(np.float64)
+          for _ in range(2)]
+    with RankPool(2, device=cuda, meshes=((1, 2),), timeout=120) as pool:
+        outs = pool.run("test_torch_comm:comm_body", (1, 2), "tp", xs)
+    total = xs[0] + xs[1]
+    for rank, (idx, size, route, s, sc, g) in enumerate(outs):
+        assert (idx, size, route) == (rank, 2, "gloo-cuda")
+        np.testing.assert_array_equal(s, total)
+        np.testing.assert_array_equal(sc, np.split(total, 2, axis=1)[rank])
+        np.testing.assert_array_equal(g, np.concatenate(xs, axis=2))

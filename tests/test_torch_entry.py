@@ -173,6 +173,20 @@ def test_ops_constructor_needs_a_device(fn, args):
     assert all(d == cpu for d in _devices(fn(*args, device=cpu)))
 
 
+@pytest.mark.parametrize("fn", ["RankPool", "make_mesh"])
+def test_distributed_constructor_needs_a_device(fn):
+    """The rank launcher and the mesh take a required keyword ``device``:
+    a call without one raises TypeError before any rank starts."""
+    from ttnx_torch.parallel import batch, launch
+
+    fn = getattr(launch, fn, None) or getattr(batch, fn)
+    param = inspect.signature(fn).parameters["device"]
+    assert param.kind is inspect.Parameter.KEYWORD_ONLY
+    assert param.default is inspect.Parameter.empty
+    with pytest.raises(TypeError, match="device"):
+        fn(2)
+
+
 def test_sine_mode_problem_is_a_sum_of_eigenmodes():
     """``u0`` is ``mode_sum`` with unit factors, ``A`` maps it to the
     modes scaled by ``lam``, the padded guess represents ``u0``, and the

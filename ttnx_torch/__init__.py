@@ -21,12 +21,23 @@ explicit.
 
 from ttnx_torch.config import (ALSConfig, DMRGConfig, KrylovConfig,
                                MALSConfig, TDVPConfig, matmul_precision)
-from ttnx_torch.core.algebra import (add, add_op, dot, matmul, matvec, norm,
-                                     scale, scale_op, sub, sub_op)
-from ttnx_torch.core.canonical import orthogonalize, svdtrunc, tt_round
-from ttnx_torch.core.decomp import ttv_decomp, ttv_to_tensor
-from ttnx_torch.core.tt import (TTOperator, TTVector, id_tto, r_and_d_to_rks,
-                                rand_tt, zeros_tt)
+from ttnx_torch.core.algebra import (add, add_op, dot, euclidean_distance,
+                                     euclidean_distance_normalized, hadamard,
+                                     hadamard_ttm, inner_core_product,
+                                     kron_tt, kron_tto, linear_combination,
+                                     matmul, matvec, norm, outer_product,
+                                     scale, scale_op, sub, sub_op,
+                                     ttv_to_diag_tto)
+from ttnx_torch.core.canonical import (entanglement_entropy,
+                                       entanglemententropy, orthogonalize,
+                                       svdtrunc, tt_compress, tt_round)
+from ttnx_torch.core.decomp import (matricize, tto_decomp, tto_to_tensor,
+                                    tto_to_ttv, ttv_decomp, ttv_to_tensor,
+                                    ttv_to_tto)
+from ttnx_torch.core.tt import (TTOperator, TTVector, concatenate, id_tto,
+                                increase_ranks, ones_tt, r_and_d_to_rks,
+                                rand_tt, rand_tt_like, rand_tto, visualize,
+                                zeros_tt, zeros_tto)
 from ttnx_torch.cross.cross import (DMRG, DMRGCross, Greedy, MaxVol,
                                     MaxVolPivot, RandomPivot, tt_cross,
                                     tt_integrate)
@@ -127,4 +138,19 @@ __all__ = [
     "matmul_precision", "SolverTelemetry", "MaxVol", "Greedy", "DMRGCross",
     "DMRG", "MaxVolPivot", "RandomPivot", "tt_cross", "tt_integrate",
     "to_ttvector", "from_reference_layout", "save_tt", "load_tt", "Timer",
+    "concatenate", "increase_ranks", "ones_tt", "rand_tt_like", "rand_tto",
+    "visualize", "zeros_tto", "matricize", "tto_decomp", "tto_to_tensor",
+    "tto_to_ttv", "ttv_to_tto", "entanglement_entropy",
+    "entanglemententropy", "tt_compress", "euclidean_distance",
+    "euclidean_distance_normalized", "hadamard", "hadamard_ttm",
+    "inner_core_product", "kron_tt", "kron_tto", "linear_combination",
+    "outer_product", "ttv_to_diag_tto", "AbstractTTvector",
+    "AbstractTToperator", "TTvector", "TToperator", "QTTvector",
+    "QTToperator",
 ]
+
+# the reference's names for the containers, as ttnx keeps them
+AbstractTTvector = TTvector = TTVector
+AbstractTToperator = TToperator = TTOperator
+QTTvector = QTTVector
+QTToperator = QTTOperator

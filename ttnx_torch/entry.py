@@ -44,6 +44,10 @@ numpy oracle.
 device cross of ``bench.py``'s cross cells: B Wishart Laplace-transform
 integrands of one parameter each, for ``maxvol_cross_device`` (B = 16)
 or ``dmrg_cross_device`` (B = 8).
+
+``dryrun_multichip(device)`` runs on every rank of an initialized process
+group: the seven legs of the distributed layer at small shapes, each
+against its unsharded twin.
 """
 
 from __future__ import annotations
@@ -71,7 +75,7 @@ __all__ = ["entry", "flagship_cn_step", "three_mode_state",
            "contraction_problem", "norm_keeping_contraction_problem",
            "matmul_ceiling_problem", "norm_keeping_matmul_problem",
            "als_eig_problem", "mals_problem", "sine_mode_problem",
-           "mode_sum", "wishart_cross_problem"]
+           "mode_sum", "wishart_cross_problem", "dryrun_multichip"]
 
 
 def flagship_cn_step(device, rmax: int = 16, d: int = 12, h: float = 1e-9,
@@ -112,7 +116,8 @@ def batched_als_problem(device, *, batch: int = 512, rmax: int = 64,
     """The batched implicit heat solve on ``device``: ``lhs_stack`` of
     ``I - h/2 A``, the rank-``rmax`` three-mode state packed as ``b_batch``
     and ``x_batch`` (broadcast over ``batch``), ``masks``, ``u_rks`` and the
-    unpacked float64 state ``u0``. Returns a dict of those six."""
+    unpacked float64 state ``u0``. Returns a dict of those six and the
+    operator ``lhs`` itself."""
     hg = 1.0 / (2 ** d + 1)
     A = ((-1.0 / hg ** 2) * toeplitz_to_qtto(2.0, -1.0, -1.0, d,
                                              device=device)).astype(dtype)
@@ -125,8 +130,8 @@ def batched_als_problem(device, *, batch: int = 512, rmax: int = 64,
     u0 = three_mode_state(d, hg, device)
     us = pack_tt(tt_round(u0, max_bond=rmax).astype(dtype), rmax)
     b_batch = us.expand((batch,) + us.shape)
-    return dict(lhs_stack=lhs_stack, b_batch=b_batch, x_batch=b_batch,
-                masks=masks, u_rks=u_rks, u0=u0)
+    return dict(lhs=lhs, lhs_stack=lhs_stack, b_batch=b_batch,
+                x_batch=b_batch, masks=masks, u_rks=u_rks, u0=u0)
 
 
 def flat_spectrum_stack(rng, rks, R: int, n: int = 2):
@@ -493,3 +498,199 @@ def wishart_cross_problem(device, *, batch: int, method: str):
                batch=batch)
     return dict(fn=fn, seed={"maxvol": 2, "dmrg": 4}[method], f_idx=f_idx,
                 thetas=thetas, gate=1e-3)
+
+
+def _heat_problem(d: int, rmax: int, dtype, device):
+    """Padded stacks of ``(I + h/hg^2 T(2, -1, -1)) x = u0`` (h = 1e-6, u0
+    the interior-grid sine) from a seeded normalized random guess in site-0
+    canonical form: ``(A_stack, b_stack, x_stack, masks)``."""
+    from ttnx_torch.core.canonical import orthogonalize
+
+    hg = 1.0 / (2 ** d + 1)
+    A = add_op(id_tto(d, device=device),
+               scale_op(1e-6 / hg ** 2, toeplitz_to_qtto(2.0, -1.0, -1.0, d,
+                                                          device=device)))
+    b = qtt_sin(d, a=hg, b=1 - hg, device=device)
+    x0 = orthogonalize(_seeded_start(0, d, rmax), 0).to(device)
+    real_dt = torch.empty((), dtype=dtype).real.dtype
+    return (pack_op(A.astype(dtype), max(A.ranks)),
+            pack_tt(b.astype(dtype), max(b.ranks)),
+            pack_tt(x0.astype(dtype), rmax),
+            rank_masks(x0.ranks, rmax, dtype=real_dt, device=device))
+
+
+def dryrun_multichip(device) -> dict:
+    """The distributed layer end to end, on every rank of the initialized
+    process group: a ``(dp, tp)`` mesh over the world (``tp = 2`` when the
+    world size is even), then seven legs, each against its unsharded twin
+    with the JAX package's threshold (it raises ``RuntimeError`` on a miss):
+
+    1. the dp x tp batched ALS (``2 dp`` copies of a d = 6, rank-4 heat
+       solve) against the unsharded loop: dense rel < 1e-6, the batch
+       elements bitwise equal;
+    2. and 3. (tp > 1) ``make_cn_step_dist(force_tp=True)`` with
+       ``round_method='gram'`` and ``'gram_chain'`` against
+       ``make_cn_step`` (d = 6, rmax = tp): max abs < 1e-6;
+    4. dp batched DMRG (XXZ chains, d = 4, one field a problem) energies
+       against unsharded: < 1e-8;
+    5. dp batched TDVP1 with one ``h`` a problem: < 1e-10;
+    6. TSQR and TSVD of a (16 world, 8) matrix over ``dp``: < 1e-5;
+    7. (tp > 1) the pair-pipelined rounding against two singles: < 1e-10.
+
+    Rank 0 prints one summary line; every rank returns the errors."""
+    import torch.distributed as dist
+
+    from ttnx_torch.core.decomp import ttv_to_tensor
+    from ttnx_torch.parallel.batch import (batched_als_sweeps,
+                                           batched_dmrg_eig_sweeps,
+                                           batched_tdvp1_steps, make_mesh,
+                                           shard_batch,
+                                           shard_batched_problem)
+    from ttnx_torch.parallel.comm import all_gather
+    from ttnx_torch.parallel.round_dist import (gram_chain_round_dist,
+                                                gram_chain_round_dist_pair,
+                                                make_cn_step_dist,
+                                                shard_chain)
+    from ttnx_torch.parallel.tsqr import shard_rows, tsqr, tsvd
+    from ttnx_torch.solvers.als_scan import unpack_tt
+    from ttnx_torch.solvers.round_scan import round_masks
+
+    def check(ok, msg):
+        if not ok:
+            raise RuntimeError(msg)
+
+    def maxabs(a, b):
+        return float((a - b).abs().max())
+
+    device = torch.device(device)
+    dtype = torch.float64  # the legs' thresholds are float64 thresholds
+    n_devices = dist.get_world_size()
+    tp = 2 if n_devices % 2 == 0 and n_devices >= 2 else 1
+    mesh = make_mesh(dp=n_devices // tp, tp=tp, device=device)
+    errs = {}
+
+    # 1. dp x tp batched ALS against the unsharded loop
+    A_stack, b_stack, x_stack, masks = _heat_problem(6, 4, dtype, device)
+    batch = 2 * (n_devices // tp)
+    b_batch = b_stack.expand((batch,) + b_stack.shape)
+    x_batch = x_stack.expand((batch,) + x_stack.shape)
+    A_sh, b_sh, x_sh, m_sh = shard_batched_problem(
+        mesh, A_stack, b_batch, x_batch, masks)
+    out = all_gather(batched_als_sweeps(A_sh, b_sh, x_sh, m_sh,
+                                        sweep_count=2), mesh, "dp")
+    check(out.shape == x_batch.shape and bool(torch.isfinite(out).all()),
+          f"sharded batched solve: {tuple(out.shape)} or not finite")
+    ref = batched_als_sweeps(A_stack, b_batch, x_batch, masks, sweep_count=2)
+    rks = tuple(int(m.sum()) for m in masks)
+    v_out = ttv_to_tensor(unpack_tt(out[0], rks)).reshape(-1)
+    v_ref = ttv_to_tensor(unpack_tt(ref[0], rks)).reshape(-1)
+    err = float(torch.linalg.norm(v_out - v_ref) / torch.linalg.norm(v_ref))
+    errs["vs_unsharded_err"] = err
+    check(err < 1e-6, f"sharded batched solve deviates: {err}")
+    intra = maxabs(out, out[0:1])
+    check(intra == 0.0, f"batch elements diverged under dp sharding: {intra}")
+
+    # 2.-3. tp-sharded rounding inside the CN step, both round methods
+    if tp > 1:
+        from ttnx_torch.solvers.round_scan import make_cn_step
+
+        d_cn, rmax_cn = 6, tp  # padded rank RA*rmax divisible by tp
+        hg = 1.0 / (2 ** d_cn + 1)
+        A_cn = (-1.0 / hg ** 2) * toeplitz_to_qtto(2.0, -1.0, -1.0, d_cn,
+                                                   device=device)
+        u_rks = (1,) + (rmax_cn,) * (d_cn - 1) + (1,)
+        u0 = qtt_sin(d_cn, a=hg, b=1 - hg, device=device)
+        for method, key in (("gram", "cn_gram_err"),
+                            ("gram_chain", "cn_gram_chain_err")):
+            sfd, packd, _ = make_cn_step_dist(
+                A_cn, 1e-7, rmax_cn, (2,) * d_cn, u_rks, mesh, dtype=dtype,
+                sweep_count=2, force_tp=True, round_method=method)
+            sf, pack, _ = make_cn_step(
+                A_cn, 1e-7, rmax=rmax_cn, dims=(2,) * d_cn, u_rks=u_rks,
+                dtype=dtype, sweep_count=2, round_method=method)
+            errs[key] = maxabs(sfd(packd(u0)), sf(pack(u0)))
+            check(errs[key] < 1e-6,
+                  f"tp-sharded CN step ({method}) deviates: {errs[key]}")
+
+    # 4. dp-sharded batched DMRG: one XXZ field a problem
+    d_h, rmax_h = 4, 4
+    B = 2 * (n_devices // tp)
+    real_dt = torch.empty((), dtype=dtype).real.dtype
+    ops = [heisenberg_xyz_tto(d_h, jx=1.0, jy=1.0, jz=0.5, lam=float(la),
+                              field="z", device=device).astype(dtype)
+           for la in np.linspace(0.0, 1.0, B)]
+    A_b = torch.stack([pack_op(H, max(H.ranks)) for H in ops])
+    xh = _seeded_start(7, d_h, 2, orthogonal=True).astype(dtype).to(device)
+    xh_b = pack_tt(xh, rmax_h).expand((B, d_h, rmax_h, 2, rmax_h))
+    mh_b = rank_masks(xh.ranks, rmax_h, dtype=real_dt,
+                      device=device).expand((B, d_h + 1, rmax_h))
+    tol_h = 1e-8
+    ref_dmrg = batched_dmrg_eig_sweeps(A_b, xh_b, mh_b, tol_h, tol_h,
+                                       n_sweeps=1)
+    out_dmrg = batched_dmrg_eig_sweeps(*shard_batch(mesh, A_b, xh_b, mh_b),
+                                       tol_h, tol_h, n_sweeps=1)
+    errs["dp_dmrg_err"] = maxabs(all_gather(out_dmrg[2], mesh, "dp"),
+                                 ref_dmrg[2])
+    check(errs["dp_dmrg_err"] < 1e-8,
+          f"dp-sharded batched DMRG deviates: {errs['dp_dmrg_err']}")
+
+    # 5. dp-sharded batched TDVP1: one step size a problem
+    A_heat = _heat_problem(d_h, rmax_h, dtype, device)[0]
+    hs = torch.as_tensor(np.linspace(1e-6, 4e-6, B), dtype=dtype,
+                         device=device)
+    ref_tdvp = batched_tdvp1_steps(A_heat, xh_b, mh_b, hs, n_steps=2,
+                                   imag_real=True)
+    x3, m3, h3 = shard_batch(mesh, xh_b, mh_b, hs)
+    out_tdvp = batched_tdvp1_steps(A_heat, x3, m3, h3, n_steps=2,
+                                   imag_real=True)
+    errs["dp_tdvp_err"] = maxabs(all_gather(out_tdvp, mesh, "dp"), ref_tdvp)
+    check(errs["dp_tdvp_err"] < 1e-10,
+          f"dp-sharded batched TDVP deviates: {errs['dp_tdvp_err']}")
+
+    # 6. TSQR / TSVD of a row-sharded tall matrix
+    rng_t = np.random.default_rng(3)
+    a_tall = torch.as_tensor(rng_t.standard_normal((16 * n_devices, 8)),
+                             dtype=dtype, device=device)
+    a_loc = shard_rows(a_tall, mesh, "dp")
+    q_t, r_t = tsqr(a_loc, mesh, "dp")
+    u_t, s_t, vt_t = tsvd(a_loc, mesh, "dp")
+    q_t, u_t = all_gather(q_t, mesh, "dp"), all_gather(u_t, mesh, "dp")
+    errs["tsqr_err"] = maxabs(q_t @ r_t, a_tall)
+    s_ref = np.linalg.svd(a_tall.cpu().numpy(), compute_uv=False)
+    errs["tsvd_err"] = max(
+        float(np.max(np.abs(s_t.cpu().numpy() - s_ref))),
+        maxabs((u_t * s_t[None, :]) @ vt_t, a_tall))
+    check(errs["tsqr_err"] < 1e-5, f"tsqr deviates: {errs['tsqr_err']}")
+    check(errs["tsvd_err"] < 1e-5, f"tsvd deviates: {errs['tsvd_err']}")
+
+    # 7. the pair-pipelined tp rounding against two singles
+    errs["pipe_round_err"] = None
+    if tp > 1:
+        d_r, R_r, R_o = 5, 2 * tp, 2
+        ys = [pack_tt(_seeded_start(seed, d_r, R_r).astype(dtype).to(device),
+                      R_r) for seed in (11, 12)]
+        out_rks = round_masks([1] + [R_r] * (d_r - 1) + [1], R_o, (2,) * d_r)
+        m_out = rank_masks(out_rks, R_o, dtype=real_dt, device=device)
+        pair = gram_chain_round_dist_pair(
+            shard_chain(torch.stack(ys), mesh), R_o, m_out, mesh)
+        singles = [gram_chain_round_dist(shard_chain(y, mesh), R_o, m_out,
+                                         mesh) for y in ys]
+        errs["pipe_round_err"] = max(maxabs(pair[q], singles[q])
+                                     for q in range(2))
+        check(errs["pipe_round_err"] < 1e-10,
+              f"pipelined pair rounding deviates: {errs['pipe_round_err']}")
+
+    if dist.get_rank() == 0:
+        pipe = errs["pipe_round_err"]
+        axes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        print(f"dryrun_multichip OK: mesh={axes} "
+              f"out={tuple(out.shape)} sharding=dp blocks of "
+              f"{out.shape[0] // (n_devices // tp)} on {device} "
+              f"vs_unsharded_err={err:.2e} "
+              f"dp_dmrg_err={errs['dp_dmrg_err']:.2e} "
+              f"dp_tdvp_err={errs['dp_tdvp_err']:.2e} "
+              f"tsqr_err={errs['tsqr_err']:.2e} "
+              f"tsvd_err={errs['tsvd_err']:.2e} "
+              f"pipe_round_err={pipe if pipe is None else f'{pipe:.2e}'}",
+              flush=True)
+    return errs

@@ -1,5 +1,6 @@
 """Continuous batching of independent QTT solves: one operator (or one per
-problem), a batch of right-hand sides, initial guesses and states.
+problem), a batch of right-hand sides, initial guesses and states; and the
+mesh that spreads such a batch over the ranks of a process group.
 
 :func:`batched_als_sweeps` is the twin of ``ttnx.parallel.batch.
 batched_als_sweeps`` (a ``vmap`` of ``als_sweeps`` there). It runs the batch
@@ -14,6 +15,14 @@ written out is :func:`ttnx_torch.solvers.als_scan_batched.als_sweeps_b`
 of the DMRG and TDVP sweeps, likewise loops over problems: the operator
 stack is shared (5-D) or one per problem (6-D), masks are per problem, and
 a step ``h`` is a scalar or one value per problem.
+
+The mesh half is SPMD (every rank of an initialized ``torch.distributed``
+group makes the same calls): :func:`make_mesh` builds the ``(dp, tp)``
+``DeviceMesh``; :func:`shard_batch` and :func:`shard_batched_problem`
+return this rank's ``dp`` block of the batched arrays (the twins of
+``device_put`` with ``P("dp")``), and the batched loops above then run on
+those blocks; :func:`batched_als_linsolve` takes and returns whole lists on
+every rank, solving only this rank's ``dp`` share.
 """
 
 from __future__ import annotations
@@ -21,12 +30,33 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ttnx_torch.solvers.als_scan import als_sweeps
+from ttnx_torch.parallel.comm import all_gather, local_block
+from ttnx_torch.solvers.als_scan import (als_sweeps, pack_op, pack_tt,
+                                         rank_masks, unpack_tt)
 from ttnx_torch.solvers.dmrg_scan import dmrg_eig_sweep
 from ttnx_torch.solvers.tdvp_scan import tdvp1_step, tdvp2_step
 
-__all__ = ["batched_als_sweeps", "batched_dmrg_eig_sweeps",
-           "batched_tdvp1_steps", "batched_tdvp2_steps"]
+__all__ = ["make_mesh", "batched_als_sweeps", "batched_als_linsolve",
+           "batched_dmrg_eig_sweeps", "batched_tdvp1_steps",
+           "batched_tdvp2_steps", "shard_batched_problem", "shard_batch"]
+
+
+def make_mesh(dp: int | None = None, tp: int = 1, *, device):
+    """A ``(dp, tp)`` ``DeviceMesh`` over the ranks of the initialized
+    process group, axes ``("dp", "tp")``: data-parallel batch axis x
+    tensor-parallel rank axis, on ``device``'s type. Defaults to all ranks
+    on ``dp``; ``dp * tp`` must be the world size."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = dist.get_world_size()
+    if dp is None:
+        dp = n // tp
+    if dp * tp != n:
+        raise ValueError(f"dp*tp must equal the world size ({dp}*{tp} != "
+                         f"{n})")
+    return init_device_mesh(torch.device(device).type, (dp, tp),
+                            mesh_dim_names=("dp", "tp"))
 
 
 def batched_als_sweeps(A_stack, b_batch, x_batch, masks, sweep_count: int = 2,
@@ -117,3 +147,50 @@ def batched_tdvp2_steps(A, x_batch, mask_batch, h, truncerr, max_bond,
         xs.append(x)
         ms.append(m)
     return torch.stack(xs), torch.stack(ms)
+
+
+def shard_batch(mesh, *arrays):
+    """This rank's ``dp`` block of each batched array (leading problem
+    axis) — the generic dp placement for the batched DMRG/TDVP tiers."""
+    return tuple(local_block(a, mesh, "dp") for a in arrays)
+
+
+def shard_batched_problem(mesh, A_stack, b_batch, x_batch, masks):
+    """A batched problem on this rank: the ``dp`` blocks of ``b_batch`` and
+    ``x_batch``, the operator and masks whole. The JAX package also shards
+    ``x``'s last rank axis over ``tp``; here ``x`` stays whole within a
+    ``tp`` group (the result is the same)."""
+    b_sh, x_sh = shard_batch(mesh, b_batch, x_batch)
+    return A_stack, b_sh, x_sh, masks
+
+
+def batched_als_linsolve(mesh, A, bs, x0s, sweep_count: int = 2,
+                         rmax: int | None = None, solver: str = "lu"):
+    """Solve many independent ``A x = b_k`` problems across the mesh.
+
+    All problems must share dims and the rank profile of ``x0s[0]`` (pad
+    the guesses to a common ``rmax`` first); their number must divide by
+    ``dp``. Every rank passes the whole lists and gets the whole list of
+    TTVectors back; it solves its ``dp`` share, and the shares are
+    gathered along ``dp``."""
+    from functools import reduce
+
+    from ttnx_torch.core.canonical import orthogonalize
+
+    x0s = [orthogonalize(x, 0) for x in x0s]
+    rks = x0s[0].ranks
+    if rmax is None:
+        rmax = max(rks)
+    dt = reduce(torch.promote_types, [b.dtype for b in bs], A.dtype)
+    A_stack = pack_op(A.astype(dt), max(A.ranks))
+    Rb = max(max(b.ranks) for b in bs)
+    b_batch = torch.stack([pack_tt(b.astype(dt), Rb) for b in bs])
+    x_batch = torch.stack([pack_tt(x.astype(dt), rmax) for x in x0s])
+    real_dt = torch.empty((), dtype=dt).real.dtype
+    masks = rank_masks(rks, rmax, dtype=real_dt, device=A_stack.device)
+
+    A_sh, b_sh, x_sh, m_sh = shard_batched_problem(
+        mesh, A_stack, b_batch, x_batch, masks)
+    out = all_gather(batched_als_sweeps(A_sh, b_sh, x_sh, m_sh, sweep_count,
+                                        solver=solver), mesh, "dp")
+    return [unpack_tt(out[k], rks) for k in range(len(bs))]

@@ -37,7 +37,12 @@ def matvec_padded(A_stack, x_stack):
 def _gram_lq(cm, R):
     """``cm (R, nR) = T @ q``: q has orthonormal rows on the row space of
     cm and zero rows in its null space; ``T = (cm cm^H)^{1/2}``."""
-    G = cm @ cm.conj().T
+    return _gram_sqrt(cm @ cm.conj().T, cm, R)
+
+
+def _gram_sqrt(G, cm, R):
+    """:func:`_gram_lq` from the Gram matrix ``G = cm cm^H`` (``cm`` may be
+    a column block of the matrix whose Gram ``G`` is)."""
     w, V = torch.linalg.eigh(G)
     s = torch.sqrt(torch.clamp(w.real, min=0.0))
     cutoff = torch.finfo(s.dtype).eps * R * torch.max(s)
@@ -199,27 +204,13 @@ def cn_step(lhs_stack, rhs_stack, u_stack, guess_noise, masks_u,
                           cg_iters=cg_iters)
 
 
-def make_cn_step(A, h: float, rmax: int, dims, u_rks, dtype=torch.float64,
-                 sweep_count: int = 4, solver: str = "lu", orth: str = "qr",
-                 round_rhs: bool = True, round_method: str = "svd",
-                 precision: str | None = None, cg_iters: int = 48):
-    """Setup for :func:`cn_step` on ``du/dt = A u``: packs ``I -/+ h/2 A``
-    and builds all masks on ``A``'s device. Returns
-    ``(step_fn, pack, unpack)``; ``pack`` copies a TTVector to that
-    device."""
+def _cn_parts(A, h: float, rmax: int, dims, u_rks, dtype):
+    """The operands of a CN step on ``A``'s device: ``I -/+ h/2 A``
+    packed, the state's feasible ranks and masks, the masks of the applied
+    chain and of its rounding, and the masked guess noise."""
     from ttnx_torch.core.algebra import add_op, scale_op
-    from ttnx_torch.core.canonical import tt_round
     from ttnx_torch.core.tt import id_tto
 
-    if round_method not in ("svd", "gram", "gram_chain"):
-        raise ValueError("round_method must be 'svd', 'gram' or "
-                         f"'gram_chain', got {round_method!r}")
-    if solver not in SOLVERS:
-        raise ValueError(
-            "solver must be 'lu', 'cg', 'bicgstab', 'cg_fused' or "
-            f"'bicgstab_fused', got {solver!r}")
-    if orth not in ("qr", "polar"):
-        raise ValueError(f"orth must be 'qr' or 'polar', got {orth!r}")
     d = len(dims)
     device = A.device
     A = A.astype(dtype)
@@ -227,9 +218,6 @@ def make_cn_step(A, h: float, rmax: int, dims, u_rks, dtype=torch.float64,
     lhs = add_op(eye, scale_op(-h / 2, A))
     rhs = add_op(eye, scale_op(h / 2, A))
     RA = max(rhs.ranks)
-    lhs_stack = pack_op(lhs, max(lhs.ranks))
-    rhs_stack = pack_op(rhs, RA)
-
     u_rks = r_and_d_to_rks(u_rks, dims, rmax=rmax)
     real_dt = torch.empty((), dtype=dtype).real.dtype
     masks_u = rank_masks(u_rks, rmax, dtype=real_dt, device=device)
@@ -252,20 +240,53 @@ def make_cn_step(A, h: float, rmax: int, dims, u_rks, dtype=torch.float64,
     for i in range(d):
         noise_np[i, : u_rks[i], :, : u_rks[i + 1]] = 1e-3 * rng.standard_normal(
             (u_rks[i], 2, u_rks[i + 1]))
-    guess_noise = torch.as_tensor(noise_np, dtype=dtype, device=device)
+    return dict(lhs_stack=pack_op(lhs, max(lhs.ranks)),
+                rhs_stack=pack_op(rhs, RA), RA=RA, u_rks=u_rks,
+                masks_u=masks_u, masks_big=masks_big, masks_out=masks_out,
+                guess_noise=torch.as_tensor(noise_np, dtype=dtype,
+                                            device=device))
+
+
+def _cn_pack(u, rmax: int, dtype, device):
+    """A TTVector as the packed state of a CN step (rounded to ``rmax``
+    first where it is wider)."""
+    from ttnx_torch.core.canonical import tt_round
+
+    if max(u.ranks) > rmax:
+        u = tt_round(u, max_bond=rmax)
+    return pack_tt(u.astype(dtype).to(device), rmax)
+
+
+def make_cn_step(A, h: float, rmax: int, dims, u_rks, dtype=torch.float64,
+                 sweep_count: int = 4, solver: str = "lu", orth: str = "qr",
+                 round_rhs: bool = True, round_method: str = "svd",
+                 precision: str | None = None, cg_iters: int = 48):
+    """Setup for :func:`cn_step` on ``du/dt = A u``: packs ``I -/+ h/2 A``
+    and builds all masks on ``A``'s device. Returns
+    ``(step_fn, pack, unpack)``; ``pack`` copies a TTVector to that
+    device."""
+    if round_method not in ("svd", "gram", "gram_chain"):
+        raise ValueError("round_method must be 'svd', 'gram' or "
+                         f"'gram_chain', got {round_method!r}")
+    if solver not in SOLVERS:
+        raise ValueError(
+            "solver must be 'lu', 'cg', 'bicgstab', 'cg_fused' or "
+            f"'bicgstab_fused', got {solver!r}")
+    if orth not in ("qr", "polar"):
+        raise ValueError(f"orth must be 'qr' or 'polar', got {orth!r}")
+    c = _cn_parts(A, h, rmax, dims, u_rks, dtype)
 
     def step_fn(u_stack):
-        return cn_step(lhs_stack, rhs_stack, u_stack, guess_noise, masks_u,
-                       masks_big, masks_out, sweep_count, solver, orth,
-                       round_rhs, round_method, precision, cg_iters)
+        return cn_step(c["lhs_stack"], c["rhs_stack"], u_stack,
+                       c["guess_noise"], c["masks_u"], c["masks_big"],
+                       c["masks_out"], sweep_count, solver, orth, round_rhs,
+                       round_method, precision, cg_iters)
 
     def pack(u):
-        if max(u.ranks) > rmax:
-            u = tt_round(u, max_bond=rmax)
-        return pack_tt(u.astype(dtype).to(device), rmax)
+        return _cn_pack(u, rmax, dtype, A.device)
 
     def unpack(s):
-        return unpack_tt(s, u_rks)
+        return unpack_tt(s, c["u_rks"])
 
     return step_fn, pack, unpack
 
