@@ -213,6 +213,29 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    ranks' launches add to this process's in the totals; any rank's
    failure fails the run.
 
+14. Autograd, the NaN trap and the examples (phase and sub-phase wall
+   times logged; every line with the card's name and power limit): (a)
+   the core gradient of the Rayleigh quotient of phase 11's XXX chain (d =
+   10, the seeded rank-4 start) on the card in float64 (<= 1e-10 of the
+   CPU's float64 gradient) and float32, TF32 off (<= 1e-4); the
+   torch.optim.Adam twin of the JAX package's optax test in float64 and
+   float32 (100 steps of lr 0.05 on laplacian(4): below its start and
+   within 1e-2 of the dense ground energy); one wrapper of each kernel
+   file refuses a CUDA input that requires grad, each input in turn,
+   with RuntimeError and no launch; (b) one NaN in the input of phase 4's
+   CN step at r16: with utils.validation.debug_nans the step raises
+   FloatingPointError naming the first op or kernel to return a NaN;
+   without it, the NaN reaches the output or cuSOLVER's eigh of the
+   rounding's Gram raises a LinAlgError; the clean step under the trap
+   equals the step without it; (c) every script of examples_torch/ in
+   this process (runpy), the launch counts reset before each: each runs
+   its examples/ twin's asserts (quadrature_cross stops at its twin's
+   failing d = 10 assert, as the twin does, ROADMAP C.24), and the
+   kernel launches of each equal EXAMPLE_LAUNCHES (als_quickstart: B2
+   2 + 2; ising_phase_transition: B8 52; batched_dmrg_tdvp_sweep: B8 60;
+   batched_parameter_sweep: B2 16 + 16; no other script launches). These
+   launches add to the totals.
+
 The last two lines are a JSON summary of the kernels (13 rows: errors,
 times, bound, library time; ``kernel_route`` the wrapper's route where it
 has more than one; B6 at B = 512, right; B8 at R = 64, right) and the
@@ -2811,6 +2834,245 @@ def phase_distributed(device):
     return total
 
 
+# ---------------------------------------------------------------------------
+# Autograd interop, the NaN trap and the examples
+# ---------------------------------------------------------------------------
+
+GRAD_TOL = {torch.float64: 1e-10, torch.float32: 1e-4}
+ADAM_STEPS, ADAM_GATE = 100, 1e-2  # tests/test_ad_interop.py's optax twin
+# the launches a run of each examples_torch/ script makes: one a wrapper
+# call, as many as its CPU run calls the wrappers (scripts not named
+# launch nothing)
+EXAMPLE_LAUNCHES = {
+    "als_quickstart": {"right_env_chain_fused": 2, "left_env_chain_fused": 2},
+    "ising_phase_transition": {"env_chain_A_fused": 52},
+    "batched_dmrg_tdvp_sweep": {"env_chain_A_fused": 60},
+    "batched_parameter_sweep": {"right_env_chain_fused": 16,
+                                "left_env_chain_fused": 16},
+}
+# scripts that stop, as their examples/ twins do, at a failing assert of
+# the twin's, and the line they print before it (ROADMAP C.24)
+FAILS_AS_ITS_TWIN = {"quadrature_cross": "d=10  rel err 8.512e-06"}
+
+
+def rayleigh_grad(A, x0, device, dtype):
+    """The core gradient of the Rayleigh quotient of ``A`` at ``x0``, in
+    ``dtype`` on ``device``, as float64 CPU tensors."""
+    from ttnx_torch.utils.manifold import core_grad, rayleigh_quotient
+
+    g = core_grad(rayleigh_quotient(A.astype(dtype).to(device)),
+                  x0.astype(dtype).to(device))
+    return [c.double().cpu() for c in g]
+
+
+def adam_run(device, dtype):
+    """The torch.optim.Adam twin of ttnx's optax test: 100 steps of lr
+    0.05 on the Rayleigh quotient of laplacian(4) from a seeded rank-4
+    state. Returns (first value, last value, dense ground energy)."""
+    from ttnx_torch.core.tt import TTVector, rand_tt
+    from ttnx_torch.ops.operators import laplacian
+    from ttnx_torch.ops.qtt import qtto_to_matrix
+    from ttnx_torch.utils.manifold import rayleigh_quotient
+
+    H = laplacian(4, device=device).astype(dtype)
+    cost = rayleigh_quotient(H)
+    x = rand_tt(torch.Generator().manual_seed(1234), (2,) * 4, rmax=4,
+                normalise=True, orthogonal=True, dtype=dtype).to(device)
+    cores = [c.clone().requires_grad_() for c in x.cores]
+    opt = torch.optim.Adam(cores, lr=0.05)
+    first = float(cost(x))
+    for _ in range(ADAM_STEPS):
+        opt.zero_grad()
+        val = cost(TTVector(cores))
+        val.backward()
+        opt.step()
+    e_dense = np.linalg.eigvalsh(qtto_to_matrix(H).double().cpu().numpy())[0]
+    return first, float(val.detach()), float(e_dense)
+
+
+def refusal_cases(device):
+    """One wrapper of each kernel file with small inputs on ``device``:
+    ``{name: (wrapper, args, kwargs)}``."""
+    from ttnx_torch.kernels import (als_sweep_fused, contraction, env_chain,
+                                    gram, lanczos, local_cg, local_cg_mf)
+
+    g = torch.Generator().manual_seed(14)
+
+    def t(*shape, dtype=torch.float64):
+        return (torch.randn(shape, generator=g, dtype=torch.float64) / 4
+                ).to(device=device, dtype=dtype)
+
+    d, R, n, RA, M = 3, 4, 2, 3, 6
+    K = t(M, M)
+    K = K @ K.T + torch.eye(M, dtype=K.dtype, device=device)
+    masks = torch.ones((d + 1, R), dtype=torch.float64, device=device)
+    return {
+        "gram_chain_fused": (gram.gram_chain_fused, (t(d, R, n, R),), {}),
+        "right_env_chain_fused": (env_chain.right_env_chain_fused,
+                                  (t(d, R, n, R), t(d, RA, n, n, RA),
+                                   t(d, 2, n, 2)), {}),
+        "lanczos_fused": (lanczos.lanczos_fused, (K, t(M)), dict(iters=3)),
+        "als_fwd_bwd_fused_batched": (
+            als_sweep_fused.als_fwd_bwd_fused_batched,
+            (t(d, RA, n, n, RA), t(2, d, R, n, R), t(2, d, R, n, R), masks),
+            {}),
+        "matmul_chain": (contraction.matmul_chain,
+                         (t(2, 3, 4, dtype=torch.float32),
+                          t(2, 4, 4, dtype=torch.float32)), {}),
+        "cg_solve_fused": (local_cg.cg_solve_fused, (K, t(M)),
+                           dict(x0=t(M))),
+        "cg_matfree_fused": (local_cg_mf.cg_matfree_fused,
+                             (t(R, RA, R), t(RA, n, n, RA), t(R, RA, R),
+                              t(R, n, R), torch.ones_like(t(R, n, R))),
+                             dict(x0=t(R, n, R))),
+    }
+
+
+def autograd_on_card(device, smi):
+    """14a: the Rayleigh-quotient core gradient of phase 11's XXX chain on
+    the card against the CPU's in f64; the Adam run's gate; the gradient
+    gate of one wrapper of each kernel file on CUDA inputs."""
+    from ttnx_torch.entry import als_eig_problem
+
+    cpu = torch.device("cpu")
+    p = als_eig_problem(cpu, d=EIG[0], rmax=4, dtype=torch.float64)
+    ref = rayleigh_grad(p["A"], p["x0"], cpu, torch.float64)
+    scale = max(float(r.abs().max()) for r in ref)
+    for dtype in (torch.float64, torch.float32):
+        got = rayleigh_grad(p["A"], p["x0"], device, dtype)
+        err = max(float((a - b).abs().max()) for a, b in zip(got, ref))
+        log(f"14a Rayleigh-quotient core gradient, XXX chain d={EIG[0]} "
+            f"rank 4, {dtype} on {device} vs CPU float64: max abs err "
+            f"{err / scale:.3e} of max |g| {scale:.3e} (<= "
+            f"{GRAD_TOL[dtype]:.0e}) | {smi}")
+        gate(f"14a gradient {dtype}", err <= GRAD_TOL[dtype] * scale,
+             err=err / scale)
+    for dtype in (torch.float64, torch.float32):
+        first, last, e_dense = adam_run(device, dtype)
+        log(f"14a torch.optim.Adam {ADAM_STEPS} steps lr 0.05, {dtype}: "
+            f"cost {first:.6f} -> {last:.6f}, dense ground {e_dense:.6f}, "
+            f"gap {last - e_dense:.3e} (< {ADAM_GATE:.0e}) | {smi}")
+        gate(f"14a Adam {dtype}", last < first and last - e_dense < ADAM_GATE,
+             first=first, last=last, e_dense=e_dense)
+    refused = []
+    for name, (fn, args, kwargs) in refusal_cases(device).items():
+        slots = [(True, i) for i in range(len(args))] + [
+            (False, k) for k, v in kwargs.items() if torch.is_tensor(v)]
+        for positional, slot in slots:
+            a, kw = list(args), dict(kwargs)
+            if positional:
+                a[slot] = a[slot].clone().requires_grad_()
+            else:
+                kw[slot] = kw[slot].clone().requires_grad_()
+            before = fn.launches
+            try:
+                fn(*a, **kw)
+            except RuntimeError as e:
+                if "the kernel has no backward" not in str(e):
+                    raise
+            else:
+                raise RuntimeError(f"14a {name} took a CUDA input that "
+                                   f"requires grad")
+            gate(f"14a {name} launched nothing", fn.launches == before)
+        refused.append(f"{name} ({len(slots)} inputs)")
+    log(f"14a the gradient gate refused a CUDA input that requires grad, "
+        f"each input in turn, launching nothing: {', '.join(refused)}")
+
+
+def nan_trap_on_card(device, smi):
+    """14b: one NaN in the input of phase 4's CN step at r16. With
+    debug_nans the step raises FloatingPointError naming the first op or
+    kernel to return a NaN. Without it, the NaN runs on: to the output, or
+    into cuSOLVER's eigh of the rounding's Gram, which then raises a
+    LinAlgError that does not name the NaN (on the CPU, LAPACK returns
+    NaN). The clean step under the trap raises nothing and equals the
+    step without it."""
+    from ttnx_torch.kernels.dispatch import launch_counts
+    from ttnx_torch.utils.validation import debug_nans
+
+    step_fn, us, _ = setup(16, device)
+    bad = us.clone()
+    bad[0, 0, 0, 0] = float("nan")
+    before = launch_counts()
+    with debug_nans():
+        try:
+            step_fn(bad)
+        except FloatingPointError as e:
+            message = str(e)
+        else:
+            raise RuntimeError("14b: the NaN trap let a NaN through")
+    inside = {k: v - before[k] for k, v in launch_counts().items()
+              if v != before[k]}
+    log(f"14b CN step d={D} r16 f32 with one NaN at site 0, trap on: "
+        f"FloatingPointError '{message}' (launches before it {inside}) | "
+        f"{smi}")
+    try:
+        out = step_fn(bad)
+        torch.cuda.synchronize()
+        off = f"the step runs, NaN in the output {bool(torch.isnan(out).any())}"
+        gate("14b trap off", bool(torch.isnan(out).any()))
+    except torch.linalg.LinAlgError as e:
+        off = f"LinAlgError '{str(e).splitlines()[0]}'"
+    with debug_nans():  # no false alarm on the clean input
+        clean = step_fn(us)
+    same = bool(torch.equal(clean, step_fn(us)))
+    log(f"14b trap off: {off} | the clean step under the trap runs and "
+        f"equals it without: {same}")
+    gate("14b clean step under the trap", same)
+
+
+def examples_on_card(device, smi):
+    """14c: every script of examples_torch/ in this process (runpy), the
+    launch counts reset before each; returns the launches of all."""
+    import io
+    import runpy
+    from pathlib import Path
+
+    from ttnx_torch.kernels.dispatch import launch_counts, reset_launch_counts
+
+    total = {}
+    scripts = sorted((Path(__file__).resolve().parent
+                      / "examples_torch").glob("*.py"))
+    for path in scripts:
+        name = path.stem
+        reset_launch_counts()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        stopped = None
+        try:
+            with contextlib.redirect_stdout(buf):
+                runpy.run_path(str(path), run_name="__main__")
+        except AssertionError:
+            twin = FAILS_AS_ITS_TWIN.get(name)
+            if twin is None or twin not in buf.getvalue():
+                raise
+            stopped = twin
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if name in FAILS_AS_ITS_TWIN and stopped is None:
+            raise RuntimeError(f"14c {name} passed where its twin fails")
+        launched = {k: v for k, v in launch_counts().items() if v}
+        want = EXAMPLE_LAUNCHES.get(name, {})
+        gate(f"14c {name} launches", launched == want, launched=launched,
+             want=want)
+        add_counts(total, launched)
+        lines = buf.getvalue().strip().splitlines()
+        last = (f"stops at its twin's assert after '{stopped}'" if stopped
+                else lines[-1] if lines else "")
+        log(f"14c {name}: {secs:.1f} s wall | launches {launched} | {last}")
+    log(f"14c {len(scripts)} scripts on {device} | {smi}")
+    return total
+
+
+def phase_autograd_examples(device):
+    """14: autograd on the card, the NaN trap on a kernel path and the
+    examples; returns the examples' launches."""
+    smi = smi_line()
+    timed("14a", autograd_on_card, device, smi)
+    timed("14b", nan_trap_on_card, device, smi)
+    return timed("14c", examples_on_card, device, smi)
+
+
 def summarize(rows, path_rows, counts):
     """One JSON row per kernel at the type and rank where its path runs
     it: f32 at rank 64 (B3, B9, B10 at 16; B5 and B6, right, at B =
@@ -2897,6 +3159,7 @@ def main() -> int:
             if name not in CN_KERNELS:
                 counts[name] = counts.get(name, 0) + n
     add_counts(counts, timed("13", phase_distributed, device))
+    add_counts(counts, timed("14", phase_autograd_examples, device))
     missing = [k for k in KERNELS if counts.get(k, 0) == 0]
     if missing:
         raise RuntimeError(f"the main paths launched no {missing}")

@@ -342,7 +342,7 @@ def test_public_names():
         assert hasattr(ttnx_torch, name), name
 
 
-# ttnx's manifold utilities wait for the port's autograd interop
+# ttnx's manifold utilities, the last names the port took over
 MANIFOLD = {"ttvector_manifold", "rayleigh_quotient",
             "manifold_gradient_descent"}
 
@@ -350,10 +350,9 @@ MANIFOLD = {"ttvector_manifold", "rayleigh_quotient",
 def test_every_public_name_of_ttnx_resolves_on_the_port():
     names = {n for n in dir(ttnx) if not n.startswith("_")
              and not inspect.ismodule(getattr(ttnx, n))}
-    missing = sorted(n for n in names - MANIFOLD
-                     if not hasattr(ttnx_torch, n))
+    missing = sorted(n for n in names if not hasattr(ttnx_torch, n))
     assert not missing, missing
-    assert not MANIFOLD & set(ttnx_torch.__all__)
+    assert MANIFOLD <= set(ttnx_torch.__all__)
 
 
 # ---------------------------------------------------------------------------
@@ -389,6 +388,23 @@ PORT_FILES = sorted((REPO / "ttnx_torch").rglob("*.py")) + [
 def test_port_imports_no_jax(path):
     bad = _imported_roots(path) & {"jax", "jaxlib", "ttnx"}
     assert not bad, f"{path.name} imports {sorted(bad)}"
+
+
+EXAMPLE_FILES = sorted((REPO / "examples_torch").glob("*.py"))
+
+
+def test_every_example_has_a_port():
+    assert ({p.name for p in EXAMPLE_FILES}
+            == {p.name for p in (REPO / "examples").glob("*.py")})
+
+
+@pytest.mark.parametrize("path", EXAMPLE_FILES,
+                         ids=[p.name for p in EXAMPLE_FILES])
+def test_example_imports_no_jax(path):
+    roots = _imported_roots(path)
+    bad = roots & {"jax", "jaxlib", "ttnx", "optax"}
+    assert not bad, f"{path.name} imports {sorted(bad)}"
+    assert "ttnx_torch" in roots
 
 
 # ---------------------------------------------------------------------------

@@ -12,7 +12,8 @@ TT-Krylov methods, TDVP and the four time steppers) with its config
 objects and telemetry, and TT-cross with TT quadrature (the host MaxVol,
 Greedy and DMRG cross; the device MaxVol and DMRG cross with a batch
 axis) with the checkpoint, validation, resilience and profiling
-utilities. Layouts match
+utilities, and the autograd interop (the TT-manifold tools, ``debug_nans``,
+``torch.optim`` on leaf cores; every kernel refuses gradients). Layouts match
 ``ttnx``: vector cores ``(r_left, n, r_right)``, operator cores
 ``(r_left, n_out, n_in, r_right)``, padded stacks ``(d, R, n, R)`` / ``(d,
 RA, n, n, RA)``, masks ``(d+1, R)``, big-endian bits. Every device is
@@ -99,6 +100,8 @@ from ttnx_torch.solvers.tdvp_scan import (tdvp1_scan, tdvp1_step, tdvp2_scan,
                                           tdvp2_step)
 from ttnx_torch.utils.checkpoint import load_tt, save_tt
 from ttnx_torch.utils.convert import from_reference_layout, to_ttvector
+from ttnx_torch.utils.manifold import (manifold_gradient_descent,
+                                       rayleigh_quotient, ttvector_manifold)
 from ttnx_torch.utils.profiling import SolverTelemetry, Timer
 
 __all__ = [
@@ -144,7 +147,8 @@ __all__ = [
     "entanglemententropy", "tt_compress", "euclidean_distance",
     "euclidean_distance_normalized", "hadamard", "hadamard_ttm",
     "inner_core_product", "kron_tt", "kron_tto", "linear_combination",
-    "outer_product", "ttv_to_diag_tto", "AbstractTTvector",
+    "outer_product", "ttv_to_diag_tto", "ttvector_manifold",
+    "rayleigh_quotient", "manifold_gradient_descent", "AbstractTTvector",
     "AbstractTToperator", "TTvector", "TToperator", "QTTvector",
     "QTToperator",
 ]

@@ -2,18 +2,21 @@
 frozen dataclass, passed as ``config=`` (no globals).
 
 Twin of ``ttnx.config``; :func:`matmul_precision` sets PyTorch's TF32
-flags where the reference sets JAX's default matmul precision.
+flags where the reference sets JAX's default matmul precision, and
+:func:`script_device` picks the device of the example scripts, as
+``TTNX_CPU`` does for ttnx's.
 """
 
 from __future__ import annotations
 
+import os
 from contextlib import contextmanager
 from dataclasses import asdict, dataclass
 
 import torch
 
 __all__ = ["ALSConfig", "MALSConfig", "DMRGConfig", "TDVPConfig",
-           "KrylovConfig", "to_kwargs", "matmul_precision"]
+           "KrylovConfig", "to_kwargs", "matmul_precision", "script_device"]
 
 
 @dataclass(frozen=True)
@@ -84,3 +87,16 @@ def matmul_precision(level: str = "highest"):
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def script_device() -> torch.device:
+    """The device of a script in ``examples_torch/``: ``cuda:0``, or the
+    CPU when the environment sets ``TTNX_TORCH_CPU``. Without a card and
+    without that variable it raises: a script never runs on the CPU in
+    silence."""
+    if os.environ.get("TTNX_TORCH_CPU"):
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card: set TTNX_TORCH_CPU=1 to run the "
+                           "script on the CPU")
+    return torch.device("cuda", 0)

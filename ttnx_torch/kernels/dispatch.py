@@ -9,16 +9,33 @@ There is no fallback from a CUDA tensor to the plain version — a missing
 Each wrapper carries a plain integer ``launches`` attribute that it bumps
 once per kernel launch, so a run can show that its main path went through
 the kernels (``chip_smoke.py`` resets and reads them around the CN step).
+
+:func:`counted` also puts two checks around every wrapper, on both routes
+and both devices. A kernel has no backward (the JAX package defines no
+``custom_vjp`` for its kernels either), so a tensor input that requires
+grad while grad is enabled raises ``RuntimeError`` before any route is
+picked: the plain version never stands in, and whether a gradient exists
+never depends on the device. While ``utils.validation.debug_nans`` is on,
+the wrapper's outputs are checked for NaN, since a ``ctypes`` launch is
+invisible to the torch function mode that traps the other ops.
 """
 
 from __future__ import annotations
 
+import functools
+from types import SimpleNamespace
+
 import torch
 
 __all__ = ["use_kernel", "counted", "launch_counts", "reset_launch_counts",
-           "require_real", "require_mm_type", "can_fuse_local_cg"]
+           "require_real", "require_mm_type", "can_fuse_local_cg",
+           "refuse_grad", "check_nan", "NAN_TRAP"]
 
 _COUNTED = []
+
+# the state of ``utils.validation.debug_nans`` (one trap per process, as
+# ``jax_debug_nans`` is one flag)
+NAN_TRAP = SimpleNamespace(on=False)
 
 
 def use_kernel(*tensors: torch.Tensor) -> bool:
@@ -55,11 +72,46 @@ def require_mm_type(name: str, *tensors: torch.Tensor) -> None:
     _require_types(name, (torch.bfloat16, torch.float32), tensors)
 
 
+def _tensors(values):
+    return [v for v in values if isinstance(v, torch.Tensor)]
+
+
+def refuse_grad(name: str, tensors) -> None:
+    """Raise when grad is enabled and any of ``tensors`` requires grad: the
+    kernel behind ``name`` has no backward."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name}: the kernel has no backward, and an input requires "
+            f"grad; call it under torch.no_grad() or on detached inputs")
+
+
+def check_nan(name: str, out) -> None:
+    """Raise ``FloatingPointError`` when a floating or complex tensor of
+    ``out`` (a tensor or a tuple/list of them) holds a NaN."""
+    for t in _tensors(out if isinstance(out, (tuple, list)) else (out,)):
+        if ((t.is_floating_point() or t.is_complex())
+                and bool(torch.isnan(t).any())):
+            raise FloatingPointError(f"debug_nans: NaN in the output of "
+                                     f"{name}")
+
+
 def counted(fn):
-    """Give a kernel wrapper its ``launches`` counter and register it."""
-    fn.launches = 0
-    _COUNTED.append(fn)
-    return fn
+    """Give a kernel wrapper its ``launches`` counter, the gradient gate on
+    all of its tensor arguments and the NaN trap on its outputs, and
+    register it."""
+    name = fn.__name__
+
+    @functools.wraps(fn)
+    def gated(*args, **kwargs):
+        refuse_grad(name, _tensors(args) + _tensors(kwargs.values()))
+        out = fn(*args, **kwargs)
+        if NAN_TRAP.on:
+            check_nan(name, out)
+        return out
+
+    gated.launches = 0
+    _COUNTED.append(gated)
+    return gated
 
 
 def launch_counts() -> dict[str, int]:

@@ -1,6 +1,6 @@
-"""Utilities: numpy bridges and importers, checkpoints, validation,
-resilience, profiling and FLOP accounting. ``ttnx.utils``' manifold tools
-and ``debug_nans`` are not ported yet (ROADMAP A.7)."""
+"""Utilities: numpy bridges and importers, checkpoints, validation and the
+NaN trap, the TT-manifold optimization tools, resilience, profiling and
+FLOP accounting."""
 
 from ttnx_torch.utils.convert import (  # noqa: F401
     to_ttvector,
@@ -12,6 +12,18 @@ from ttnx_torch.utils.validation import (  # noqa: F401
     assert_valid_tt,
     assert_valid_tto,
     assert_finite,
+    debug_nans,
+)
+from ttnx_torch.utils.manifold import (  # noqa: F401
+    inner,
+    manifold_norm,
+    distance,
+    zero_vector,
+    retract,
+    TTVectorSpace,
+    ttvector_manifold,
+    manifold_gradient_descent,
+    rayleigh_quotient,
 )
 from ttnx_torch.utils.profiling import (  # noqa: F401
     trace,
