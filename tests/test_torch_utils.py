@@ -306,13 +306,18 @@ def test_contraction_flops_matches_ttnx(a, b, c):
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     x = guess(4)
+    eye = tx.id_tto(4, device=CPU)
     with tprof.trace(str(tmp_path)) as prof:
         tx.ttv_to_tensor(x)
+        tx.als_linsolve_scan(eye, x, guess(4, seed=1), sweep_count=2)
     files = list(tmp_path.iterdir())
     assert len(files) == 1 and files[0].name.endswith(".json")
-    assert "traceEvents" in json.loads(files[0].read_text())
+    events = json.loads(files[0].read_text())["traceEvents"]
     assert any("matmul" in e.key or "mm" in e.key
                for e in prof.key_averages())
+    # the ALS sweeps' phase spans are in the written trace
+    assert {"ttnx.als.solve", "ttnx.als.orth", "ttnx.als.env"} <= {
+        e.get("name") for e in events}
 
 
 # ---------------------------------------------------------------------------

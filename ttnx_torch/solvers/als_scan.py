@@ -39,6 +39,7 @@ from ttnx_torch.kernels.local_cg import (_safe_div, bicgstab_solve_fused,
 from ttnx_torch.kernels.local_cg_mf import (_vdot, apply_local_op,
                                             cg_matfree_fused,
                                             cg_matfree_plain)
+from ttnx_torch.utils.profiling import span
 
 __all__ = [
     "pack_tt",
@@ -232,20 +233,22 @@ def _forward_half_sweep(x, A, b, Renvs, Rb_envs, masks, solver="lu",
     cores = []
     for k in range(d - 1):
         m_l, m_r = masks[k], masks[k + 1]
-        # warm start: the CURRENT iterate's core = T @ x_old[k]
-        warm = torch.einsum("ab,bnc->anc", T, x[k])
-        V = _local_solve_padded(L, A[k], Renvs[k + 1], Lb, b[k],
-                                Rb_envs[k + 1], m_l, m_r, v0=warm,
-                                solver=solver, cg_iters=cg_iters)
-        if orth == "polar":
-            q, r = polar_orth(V.reshape(R * n, R))
-        else:
-            q, r = torch.linalg.qr(V.reshape(R * n, R))
-        q = q * m_r[None, :]
-        T = r * m_r[:, None]
-        core = q.reshape(R, n, R)
-        L = left_env_update(core, L, A[k])
-        Lb = left_env_b_update(core, Lb, b[k])
+        with span("ttnx.als.solve"):
+            # warm start: the CURRENT iterate's core = T @ x_old[k]
+            warm = torch.einsum("ab,bnc->anc", T, x[k])
+            V = _local_solve_padded(L, A[k], Renvs[k + 1], Lb, b[k],
+                                    Rb_envs[k + 1], m_l, m_r, v0=warm,
+                                    solver=solver, cg_iters=cg_iters)
+        with span("ttnx.als.orth"):
+            if orth == "polar":
+                q, r = polar_orth(V.reshape(R * n, R))
+            else:
+                q, r = torch.linalg.qr(V.reshape(R * n, R))
+            core = (q * m_r[None, :]).reshape(R, n, R)
+            T = r * m_r[:, None]
+        with span("ttnx.als.env"):
+            L = left_env_update(core, L, A[k])
+            Lb = left_env_b_update(core, Lb, b[k])
         cores.append(core)
     cores.append(torch.einsum("ab,bnc->anc", T, x[d - 1]))
     return torch.stack(cores)
@@ -261,19 +264,22 @@ def _backward_half_sweep(x, A, b, Lenvs, Lb_envs, masks, solver="lu",
     cores = [None] * d
     for k in range(d - 1, 0, -1):
         m_l, m_r = masks[k], masks[k + 1]
-        # warm start: the CURRENT iterate's core = x_mid[k] @ T
-        warm = torch.einsum("anb,bc->anc", x[k], T)
-        V = _local_solve_padded(Lenvs[k], A[k], Renv, Lb_envs[k], b[k],
-                                Rb_env, m_l, m_r, v0=warm, solver=solver,
-                                cg_iters=cg_iters)
-        if orth == "polar":
-            qt, rt = polar_orth(V.reshape(R, n * R).T)
-        else:
-            qt, rt = torch.linalg.qr(V.reshape(R, n * R).T)
-        core = qt.T.reshape(R, n, R) * m_l[:, None, None]
-        T = rt.T * m_l[None, :]
-        Renv = right_env_update(core, A[k], Renv)
-        Rb_env = right_env_b_update(core, b[k], Rb_env)
+        with span("ttnx.als.solve"):
+            # warm start: the CURRENT iterate's core = x_mid[k] @ T
+            warm = torch.einsum("anb,bc->anc", x[k], T)
+            V = _local_solve_padded(Lenvs[k], A[k], Renv, Lb_envs[k], b[k],
+                                    Rb_env, m_l, m_r, v0=warm, solver=solver,
+                                    cg_iters=cg_iters)
+        with span("ttnx.als.orth"):
+            if orth == "polar":
+                qt, rt = polar_orth(V.reshape(R, n * R).T)
+            else:
+                qt, rt = torch.linalg.qr(V.reshape(R, n * R).T)
+            core = qt.T.reshape(R, n, R) * m_l[:, None, None]
+            T = rt.T * m_l[None, :]
+        with span("ttnx.als.env"):
+            Renv = right_env_update(core, A[k], Renv)
+            Rb_env = right_env_b_update(core, b[k], Rb_env)
         cores[k] = core
     cores[0] = torch.einsum("anb,bc->anc", x[0], T)
     return torch.stack(cores)
@@ -295,14 +301,16 @@ def als_sweeps(A_stack, b_stack, x_stack, masks, sweep_count: int = 2,
         return (x * masks[1:][:, None, None, :]).contiguous()
 
     def right_envs(x):
-        if fuse_envs:
-            return right_env_chain_fused(masked(x), A_stack, b_stack)
-        return _right_env_stack(x, A_stack, b_stack, masks[1:])
+        with span("ttnx.als.env"):
+            if fuse_envs:
+                return right_env_chain_fused(masked(x), A_stack, b_stack)
+            return _right_env_stack(x, A_stack, b_stack, masks[1:])
 
     def left_envs(x):
-        if fuse_envs:
-            return left_env_chain_fused(masked(x), A_stack, b_stack)
-        return _left_env_stack(x, A_stack, b_stack, masks[1:])
+        with span("ttnx.als.env"):
+            if fuse_envs:
+                return left_env_chain_fused(masked(x), A_stack, b_stack)
+            return _left_env_stack(x, A_stack, b_stack, masks[1:])
 
     x = x_stack
     half = 0

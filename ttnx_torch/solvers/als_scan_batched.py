@@ -23,6 +23,7 @@ from ttnx_torch.kernels.env_chain import (env_chain_batched_plain,
                                           right_env_update)
 from ttnx_torch.kernels.local_cg_mf import (cg_matfree_batched_plain,
                                             cg_matfree_fused_batched)
+from ttnx_torch.utils.profiling import span
 
 __all__ = ["als_sweeps_b"]
 
@@ -76,8 +77,9 @@ def als_sweeps_b(A_stack, b_batch, x_batch, masks, sweep_count: int = 2,
     chain = env_chain_fused_batched if fused else env_chain_batched_plain
 
     def envs(x, left):
-        xm = x * masks[1:][None, :, None, None, :]
-        return chain(xm, A_stack, b_batch, left=left)
+        with span("ttnx.als.env"):
+            xm = x * masks[1:][None, :, None, None, :]
+            return chain(xm, A_stack, b_batch, left=left)
 
     def forward(x, Renvs, Rb_envs):
         L = _b_boundary_env(Bb, R, RA, dt, dev)
@@ -86,16 +88,19 @@ def als_sweeps_b(A_stack, b_batch, x_batch, masks, sweep_count: int = 2,
         cores = []
         for k in range(d - 1):
             m_r = masks[k + 1]
-            # warm start: the CURRENT iterate's core = T @ x_old[k]
-            warm = torch.einsum("Bab,Bbnc->Banc", T, x[:, k])
-            V = _b_local_cg(L, A_stack[k], Renvs[:, k + 1], Lb, b_batch[:, k],
-                            Rb_envs[:, k + 1], masks[k], m_r, cg_iters,
-                            solver, v0=warm)
-            q, r = torch.linalg.qr(V.reshape(Bb, R * n, R))
-            core = (q * m_r[None, None, :]).reshape(Bb, R, n, R)
-            T = r * m_r[None, :, None]
-            L = left_env_update(core, L, A_stack[k])
-            Lb = left_env_b_update(core, Lb, b_batch[:, k])
+            with span("ttnx.als.solve"):
+                # warm start: the CURRENT iterate's core = T @ x_old[k]
+                warm = torch.einsum("Bab,Bbnc->Banc", T, x[:, k])
+                V = _b_local_cg(L, A_stack[k], Renvs[:, k + 1], Lb,
+                                b_batch[:, k], Rb_envs[:, k + 1], masks[k],
+                                m_r, cg_iters, solver, v0=warm)
+            with span("ttnx.als.orth"):
+                q, r = torch.linalg.qr(V.reshape(Bb, R * n, R))
+                core = (q * m_r[None, None, :]).reshape(Bb, R, n, R)
+                T = r * m_r[None, :, None]
+            with span("ttnx.als.env"):
+                L = left_env_update(core, L, A_stack[k])
+                Lb = left_env_b_update(core, Lb, b_batch[:, k])
             cores.append(core)
         cores.append(torch.einsum("Bab,Bbnc->Banc", T, x[:, d - 1]))
         return torch.stack(cores, dim=1)
@@ -107,17 +112,21 @@ def als_sweeps_b(A_stack, b_batch, x_batch, masks, sweep_count: int = 2,
         cores = [None] * d
         for k in range(d - 1, 0, -1):
             m_l = masks[k]
-            # warm start: the CURRENT iterate's core = x_mid[k] @ T
-            warm = torch.einsum("Banb,Bbc->Banc", x[:, k], T)
-            V = _b_local_cg(Lenvs[:, k], A_stack[k], Renv, Lb_envs[:, k],
-                            b_batch[:, k], Rb_env, m_l, masks[k + 1],
-                            cg_iters, solver, v0=warm)
-            qt, rt = torch.linalg.qr(V.reshape(Bb, R, n * R).transpose(1, 2))
-            core = qt.transpose(1, 2).reshape(Bb, R, n, R) \
-                * m_l[None, :, None, None]
-            T = rt.transpose(1, 2) * m_l[None, None, :]
-            Renv = right_env_update(core, A_stack[k], Renv)
-            Rb_env = right_env_b_update(core, b_batch[:, k], Rb_env)
+            with span("ttnx.als.solve"):
+                # warm start: the CURRENT iterate's core = x_mid[k] @ T
+                warm = torch.einsum("Banb,Bbc->Banc", x[:, k], T)
+                V = _b_local_cg(Lenvs[:, k], A_stack[k], Renv, Lb_envs[:, k],
+                                b_batch[:, k], Rb_env, m_l, masks[k + 1],
+                                cg_iters, solver, v0=warm)
+            with span("ttnx.als.orth"):
+                qt, rt = torch.linalg.qr(
+                    V.reshape(Bb, R, n * R).transpose(1, 2))
+                core = qt.transpose(1, 2).reshape(Bb, R, n, R) \
+                    * m_l[None, :, None, None]
+                T = rt.transpose(1, 2) * m_l[None, None, :]
+            with span("ttnx.als.env"):
+                Renv = right_env_update(core, A_stack[k], Renv)
+                Rb_env = right_env_b_update(core, b_batch[:, k], Rb_env)
             cores[k] = core
         cores[0] = torch.einsum("Banb,Bbc->Banc", x[:, 0], T)
         return torch.stack(cores, dim=1)

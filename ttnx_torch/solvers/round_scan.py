@@ -20,6 +20,7 @@ from ttnx_torch.core.tt import r_and_d_to_rks
 from ttnx_torch.kernels.gram import gram_chain_fused, gram_chain_plain
 from ttnx_torch.solvers.als_scan import (SOLVERS, als_sweeps, pack_op,
                                          pack_tt, rank_masks, unpack_tt)
+from ttnx_torch.utils.profiling import span
 
 __all__ = ["matvec_padded", "tt_round_scan", "tt_round_gram", "round_masks",
            "cn_step", "make_cn_step", "make_cn_evolve", "matmul_precision"]
@@ -97,33 +98,34 @@ def tt_round_scan(y, masks_y, R_out: int, masks_out, method: str = "svd"):
     then a left-to-right masked truncation keeping the top ``R_out``
     singular directions per bond. ``'svd'`` truncates via the site SVD,
     ``'gram'`` via an eigh of each site's small Gram matrix."""
-    d, R, n, _ = y.shape
-    y = _right_orth_scan(y, masks_y, method=method)
-    k = min(R_out, R)
-    T = torch.zeros((R_out, R), dtype=y.dtype, device=y.device)
-    T[0, 0] = 1.0
-    cores = []
-    for site in range(d - 1):
-        m_r_out = masks_out[site + 1]
-        c = torch.einsum("ab,bnc->anc", T, y[site])
-        cm = c.reshape(R_out * n, R)
-        if method == "gram":
-            w, V = torch.linalg.eigh(cm @ cm.conj().T)
-            u_k = torch.flip(V, dims=[1])[:, :k]
-            t_k = u_k.conj().T @ cm
-        else:
-            u, s, vt = thin_svd(cm)
-            u_k = u[:, :k]
-            t_k = s[:k, None].to(vt.dtype) * vt[:k, :]
-        u_k = u_k * m_r_out[None, :k]
-        pad = torch.zeros((R_out * n, R_out - k), dtype=cm.dtype,
-                          device=cm.device)
-        cores.append(torch.cat([u_k, pad], dim=1).reshape(R_out, n, R_out))
-        t_k = t_k * m_r_out[:k, None]
-        T = torch.cat([t_k, torch.zeros((R_out - k, R), dtype=cm.dtype,
-                                        device=cm.device)], dim=0)
-    cores.append(_truncate_last(T, y[d - 1], R_out))
-    return torch.stack(cores)
+    with span("ttnx.round"):
+        d, R, n, _ = y.shape
+        y = _right_orth_scan(y, masks_y, method=method)
+        k = min(R_out, R)
+        T = torch.zeros((R_out, R), dtype=y.dtype, device=y.device)
+        T[0, 0] = 1.0
+        cores = []
+        for site in range(d - 1):
+            m_r_out = masks_out[site + 1]
+            c = torch.einsum("ab,bnc->anc", T, y[site])
+            cm = c.reshape(R_out * n, R)
+            if method == "gram":
+                w, V = torch.linalg.eigh(cm @ cm.conj().T)
+                u_k = torch.flip(V, dims=[1])[:, :k]
+                t_k = u_k.conj().T @ cm
+            else:
+                u, s, vt = thin_svd(cm)
+                u_k = u[:, :k]
+                t_k = s[:k, None].to(vt.dtype) * vt[:k, :]
+            u_k = u_k * m_r_out[None, :k]
+            pad = torch.zeros((R_out * n, R_out - k), dtype=cm.dtype,
+                              device=cm.device)
+            cores.append(torch.cat([u_k, pad], dim=1).reshape(R_out, n, R_out))
+            t_k = t_k * m_r_out[:k, None]
+            T = torch.cat([t_k, torch.zeros((R_out - k, R), dtype=cm.dtype,
+                                            device=cm.device)], dim=0)
+        cores.append(_truncate_last(T, y[d - 1], R_out))
+        return torch.stack(cores)
 
 
 def tt_round_gram(y, R_out: int, masks_out):
@@ -136,21 +138,22 @@ def tt_round_gram(y, R_out: int, masks_out):
     d, R, n, _ = y.shape
     if R_out > R:
         raise ValueError(f"R_out={R_out} must be <= padded rank {R}")
-    Gs = gram_chain_plain(y) if y.dtype.is_complex else gram_chain_fused(y)
-    T = torch.zeros((R_out, R), dtype=y.dtype, device=y.device)
-    T[0, 0] = 1.0
-    cores = []
-    for k in range(d - 1):
-        m_r_out = masks_out[k + 1]
-        cm = torch.einsum("ab,bnc->anc", T, y[k]).reshape(R_out * n, R)
-        B = (cm @ Gs[k]) @ cm.conj().T
-        B = 0.5 * (B + B.conj().T)
-        w, V = torch.linalg.eigh(B)
-        u_k = torch.flip(V, dims=[1])[:, :R_out] * m_r_out[None, :]
-        T = (u_k.conj().T @ cm) * m_r_out[:, None]
-        cores.append(u_k.reshape(R_out, n, R_out))
-    cores.append(_truncate_last(T, y[d - 1], R_out))
-    return torch.stack(cores)
+    with span("ttnx.round"):
+        Gs = gram_chain_plain(y) if y.dtype.is_complex else gram_chain_fused(y)
+        T = torch.zeros((R_out, R), dtype=y.dtype, device=y.device)
+        T[0, 0] = 1.0
+        cores = []
+        for k in range(d - 1):
+            m_r_out = masks_out[k + 1]
+            cm = torch.einsum("ab,bnc->anc", T, y[k]).reshape(R_out * n, R)
+            B = (cm @ Gs[k]) @ cm.conj().T
+            B = 0.5 * (B + B.conj().T)
+            w, V = torch.linalg.eigh(B)
+            u_k = torch.flip(V, dims=[1])[:, :R_out] * m_r_out[None, :]
+            T = (u_k.conj().T @ cm) * m_r_out[:, None]
+            cores.append(u_k.reshape(R_out, n, R_out))
+        cores.append(_truncate_last(T, y[d - 1], R_out))
+        return torch.stack(cores)
 
 
 def round_masks(in_rks, R_out: int, dims):

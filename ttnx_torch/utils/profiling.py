@@ -7,19 +7,33 @@ times a function with its CUDA outputs finished; :class:`Timer`
 accumulates named wall-clock sections; :func:`contraction_flops` counts a
 pairwise contraction; :class:`SolverTelemetry` carries per-solve metrics
 that a dashboard can consume.
+
+:func:`span` names a phase of a solver in a profiler's trace. The scan
+solvers open four, named ``ttnx.<layer>[.<phase>]``, none inside another:
+``ttnx.round`` around a whole rounding (``tt_round_gram``,
+``tt_round_scan``), ``ttnx.als.solve`` around each local solve (its
+right-hand side, warm start and CG), ``ttnx.als.orth`` around each site's
+gauge step (QR or ``polar_orth`` and the masking of the factors) and
+``ttnx.als.env`` around each whole-chain environment call and each site's
+environment update. A span is a ``torch.profiler.record_function`` range,
+so it lands in the trace on the clock of the CUDA activity it launched; it
+is recorded only while a profiler records (this module's :func:`trace` or
+any ``torch.profiler.profile``), and costs one check otherwise.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from dataclasses import dataclass, field
 
 import torch
 
-__all__ = ["trace", "Timer", "SolverTelemetry", "contraction_flops",
+__all__ = ["trace", "span", "Timer", "SolverTelemetry", "contraction_flops",
            "sync_and_time"]
+
+_NO_SPAN = nullcontext()
 
 
 @contextmanager
@@ -37,6 +51,15 @@ def trace(log_dir: str):
             on_trace_ready=torch.profiler.tensorboard_trace_handler(
                 log_dir)) as prof:
         yield prof
+
+
+def span(name: str):
+    """A ``record_function(name)`` range while a profiler records, else a
+    shared do-nothing context: a bare ``record_function`` costs tens of
+    microseconds even with no profiler, the check under one."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 def _tensors(out):
