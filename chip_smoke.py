@@ -34,7 +34,14 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    route the wrapper chose (sweep_route: "site" for f32 at R = 64 and 32
    without a refine stage, else "folded"), each B4/B5 line in phases 3
    and 3b likewise (matfree_route: "resident" for f32 at R = 64 and 32,
-   else "streamed").
+   else "streamed"). Then the batched gauge QR (qr_batched, no TPU twin)
+   against torch.linalg.qr, its plain version and the library's time, at
+   B = 512, R = 64 and 32 (R n x R), both layouts, f32 (<= 1e-4) and f64
+   (<= 1e-10), on seeded matrices of condition about 10, every other one
+   with three dead rows and columns, with the f32 lines' shares of the
+   bound; and the 22 QR calls of one als_sweeps_b call on phase 5's
+   problem, timed together against torch.linalg.qr's, each with |QR - V|
+   / |V| and |Q^T Q - I| <= 1e-5.
 4. Main path: the d=12 Crank-Nicolson step at ranks 16, 32 and 64 (f32,
    16 warm CG iterations) on a three-mode eigenstate: the 8-step trajectory
    against the closed form (rel <= 1e-3), the implicit residual (<= 1e-2),
@@ -46,7 +53,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 5. Batched path: 512 rank-64 d=12 implicit heat solves (f32, no TF32)
    through both routes of the bench ladder, explicit_kernel (als_sweeps_b,
    cg_fused, 16 warm CG iterations: B6 2 launches on route "resident",
-   B5 22 on route "resident") and
+   B5 22 on route "resident", the batched gauge QR 22) and
    sweep_pair_fused (B7, one launch): solves/s and GFLOP/s (median of 3
    calls after a warm-up) through the kernels and through the plain
    versions, element 0's residual against the exact tridiagonal operator
@@ -236,9 +243,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    batched_parameter_sweep: B2 16 + 16; no other script launches). These
    launches add to the totals.
 
-The last two lines are a JSON summary of the kernels (13 rows: errors,
+The last two lines are a JSON summary of the kernels (14 rows: errors,
 times, bound, library time; ``kernel_route`` the wrapper's route where it
-has more than one; B6 at B = 512, right; B8 at R = 64, right) and the
+has more than one; B6 at B = 512, right; B8 at R = 64, right; QR at B =
+512, R = 64, the forward layout) and the
 device line ``{"ok":
 true, "device": {...}}``. Without a CUDA device it exits non-zero and prints no result.
 """
@@ -352,6 +360,10 @@ KERNELS = {
     "two_site_merge": (
         "B13", "ttnx_torch.kernels.contraction",
         "ttnx_torch/csrc/contraction.cu", "ttnx/kernels/contraction.py:45"),
+    "qr_batched": (
+        "QR", "ttnx_torch.solvers.als_scan_batched",
+        "ttnx_torch/csrc/qr_batched.cu",
+        "none (ttnx leaves the batched gauge QR to XLA)"),
 }
 CN_KERNELS = ("gram_chain_fused", "right_env_chain_fused",
               "left_env_chain_fused", "cg_solve_fused", "cg_matfree_fused")
@@ -366,7 +378,8 @@ def log(msg: str) -> None:
 
 def wrappers():
     from ttnx_torch.kernels import (als_sweep_fused, contraction, env_chain,
-                                    gram, lanczos, local_cg, local_cg_mf)
+                                    gram, lanczos, local_cg, local_cg_mf,
+                                    qr_batched)
 
     return {
         "gram_chain_fused": (gram.gram_chain_fused, gram.gram_chain_plain),
@@ -395,6 +408,7 @@ def wrappers():
                          contraction.matmul_chain_plain),
         "two_site_merge": (contraction.two_site_merge,
                            contraction.two_site_merge_plain),
+        "qr_batched": (qr_batched.qr_batched, qr_batched.qr_batched_plain),
     }
 
 
@@ -630,6 +644,11 @@ def kernel_flops(name, args, kw):
     if name == "merge_resplit_chain":
         (B, m, r), n = args[0].shape, args[1].shape[2]
         return 2 * 2.0 * B * m * r * n * kw.get("iters", 8)
+    if name == "qr_batched":  # geqrf and orgqr, 2 m k^2 - 2 k^3 / 3 each
+        B, m, k = args[0].shape
+        if kw.get("rows", False):
+            m, k = k, m
+        return B * 2 * (2.0 * m * k * k - 2.0 * k ** 3 / 3)
     raise KeyError(name)
 
 
@@ -781,6 +800,65 @@ def phase_batched_kernels(device):
         if label == "B6":
             deterministic(name, args, kwargs)
         rows.append(row)
+    return rows + qr_rows(device, seen["qr_batched"])
+
+
+def qr_stack(device, dtype, R, rows):
+    """BATCH seeded (R n, R) matrices of condition about 10 (Gaussian plus
+    3 I), every other one with its last three rows and columns zero (the
+    rank masks' dead bonds), in the layout ``qr_batched(rows=rows)`` reads:
+    ``(BATCH, R n, R)`` or ``(BATCH, R, R n)``."""
+    g = torch.Generator().manual_seed(R + rows)
+    m = 2 * R
+    V = (torch.randn((BATCH, m, R), generator=g, dtype=torch.float64)
+         + 3.0 * torch.eye(m, R, dtype=torch.float64))
+    V[1::2, m - 3:] = 0.0
+    V[1::2, :, R - 3:] = 0.0
+    if rows:
+        V = V.transpose(1, 2)
+    return V.contiguous().to(device=device, dtype=dtype)
+
+
+def qr_rows(device, calls):
+    """The batched gauge QR: the kernel against torch.linalg.qr (its plain
+    version, also the library's time) at the batched ALS's shapes, B =
+    BATCH, R = 64 and 32, both layouts, f32 and f64, with its share of its
+    bound; then the 22 calls of one bench call (``calls``, recorded), timed
+    together, with Q R = V and Q^T Q = I on each (a gauge-free check: on
+    the bench's three-mode state the columns of Q past the bond's numerical
+    rank are set by rounding)."""
+    rows = []
+    for dtype in (torch.float32, torch.float64):
+        for R in BATCHED_RANKS:
+            for layout in ("cols", "rows"):
+                V = qr_stack(device, dtype, R, layout == "rows")
+                row = hold("qr_batched", R, dtype, (V,),
+                           dict(rows=layout == "rows"),
+                           tag=f" B={BATCH} {layout}")
+                row["library_ms"] = row["plain_ms"]  # torch.linalg.qr
+                if dtype == torch.float32:
+                    log_bound("QR", f" B={BATCH} r{R} {layout}", row)
+                rows.append(row)
+    kernel, plain = wrappers()["qr_batched"]
+    worst = 0.0
+    for args, kwargs in calls:
+        q, r = kernel(*args, **kwargs)
+        V = args[0].double()
+        q, r = q.double(), r.double()
+        if kwargs.get("rows", False):
+            V, q, r = V.transpose(1, 2), q.transpose(1, 2), r.transpose(1, 2)
+        eye = torch.eye(q.shape[2], dtype=q.dtype, device=q.device)
+        worst = max(worst, float(torch.linalg.norm(q @ r - V)
+                                 / torch.linalg.norm(V)),
+                    float((q.transpose(1, 2) @ q - eye).abs().max()))
+    ms = cuda_ms(lambda: [kernel(*a, **kw) for a, kw in calls], 1, 3)
+    lib_ms = cuda_ms(lambda: [plain(*a, **kw) for a, kw in calls], 1, 3)
+    log(f"kernel QR qr_batched on one bench call's {len(calls)} calls (B="
+        f"{BATCH} r64 f32): {ms:.3f} ms a call, torch.linalg.qr "
+        f"{lib_ms:.3f} ms | max(|QR - V| / |V|, |Q^T Q - I|) {worst:.3e} "
+        f"(<= 1e-5)")
+    if not worst <= 1e-5:
+        raise RuntimeError(f"qr_batched on the bench call: {worst:.3e}")
     return rows
 
 
@@ -935,7 +1013,8 @@ def phase_batched_path(device):
                                  solver="cg_fused"),
             CG_ITERS + 1,
             {"env_chain_fused_batched": 2,
-             "cg_matfree_fused_batched": 2 * (D - 1)}),
+             "cg_matfree_fused_batched": 2 * (D - 1),
+             "qr_batched": 2 * (D - 1)}),
         "sweep_pair_fused": (
             lambda: als_sweep_fused.als_fwd_bwd_fused_batched(A, bb, xb,
                                                               masks),
@@ -2894,7 +2973,8 @@ def refusal_cases(device):
     """One wrapper of each kernel file with small inputs on ``device``:
     ``{name: (wrapper, args, kwargs)}``."""
     from ttnx_torch.kernels import (als_sweep_fused, contraction, env_chain,
-                                    gram, lanczos, local_cg, local_cg_mf)
+                                    gram, lanczos, local_cg, local_cg_mf,
+                                    qr_batched)
 
     g = torch.Generator().manual_seed(14)
 
@@ -2925,6 +3005,7 @@ def refusal_cases(device):
                              (t(R, RA, R), t(RA, n, n, RA), t(R, RA, R),
                               t(R, n, R), torch.ones_like(t(R, n, R))),
                              dict(x0=t(R, n, R))),
+        "qr_batched": (qr_batched.qr_batched, (t(2, n * R, R),), {}),
     }
 
 
@@ -3082,7 +3163,8 @@ def summarize(rows, path_rows, counts):
     pick = {"cg_solve_fused": 16, "lanczos_fused": 16,
             "bicgstab_solve_fused": CONV_RMAX}
     tag = {"cg_matfree_fused_batched": f" B={BATCH}",  # the path's batch
-           "env_chain_fused_batched": f" B={BATCH} right"}
+           "env_chain_fused_batched": f" B={BATCH} right",
+           "qr_batched": f" B={BATCH} cols"}
     summary = []
     for name, (label, _, source, replaces) in KERNELS.items():
         held = [r for r in rows if r["name"] == name]

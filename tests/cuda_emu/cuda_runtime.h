@@ -5,8 +5,9 @@
 // cluster routes of B10 and B3 (local_cg.cu with dense_cluster.cuh)
 // under emulate_cluster.cpp, of B9 (lanczos.cu) under emulate_lanczos.cpp,
 // every route of env_chain_site.cu (B6, B2 and B8) under emulate_env.cpp,
-// and B1's cooperative grid route (gram_chain_grid.cu) under
-// emulate_gram.cpp. The runtime half (threads, barriers, clusters, grids)
+// B1's cooperative grid route (gram_chain_grid.cu) under
+// emulate_gram.cpp, and the batched gauge QR (qr_batched.cu) under
+// emulate_qr.cpp. The runtime half (threads, barriers, clusters, grids)
 // is emu_block.h; cooperative_groups.h is the cluster and grid API on top
 // of it.
 #pragma once
@@ -20,10 +21,14 @@ struct float4 {
 struct float2 {
   float x, y;
 };
+struct double2 {
+  double x, y;
+};
 inline float4 make_float4(float a, float b, float c, float d) {
   return {a, b, c, d};
 }
 inline float2 make_float2(float a, float b) { return {a, b}; }
+inline double2 make_double2(double a, double b) { return {a, b}; }
 
 #define __device__
 #define __global__
@@ -41,6 +46,7 @@ extern thread_local emu_dim3 blockIdx;
 extern thread_local emu_dim3 blockDim;
 extern thread_local emu_dim3 gridDim;
 float __shfl_xor_sync(unsigned mask, float v, int lane_mask);
+double __shfl_xor_sync(unsigned mask, double v, int lane_mask);
 double emu_shfl_down(double v, int delta);
 template <typename T>
 T __shfl_down_sync(unsigned, T v, int delta) {

@@ -56,6 +56,9 @@ static double emu_exchange(double v, int from) {
 float __shfl_xor_sync(unsigned, float v, int lane_mask) {
   return (float)emu_exchange(v, (threadIdx.x & 31) ^ lane_mask);
 }
+double __shfl_xor_sync(unsigned, double v, int lane_mask) {
+  return emu_exchange(v, (threadIdx.x & 31) ^ lane_mask);
+}
 double emu_shfl_down(double v, int delta) {
   const int l = threadIdx.x & 31;
   const double got = emu_exchange(v, l + delta);

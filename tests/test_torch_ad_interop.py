@@ -28,7 +28,7 @@ from ttnx.utils import manifold as jman
 import ttnx_torch as tx
 from ttnx_torch.kernels import (als_sweep_fused, contraction, dispatch,
                                 env_chain, gram, lanczos, local_cg,
-                                local_cg_mf)
+                                local_cg_mf, qr_batched)
 from ttnx_torch.utils import manifold as tman
 from ttnx_torch.utils.convert import (to_ttvector, ttoperator_from_numpy,
                                       ttvector_from_numpy)
@@ -410,6 +410,8 @@ def _wrapper_cases():
             (t(B, R, RA, R), t(RA, n, n, RA), t(B, R, RA, R), t(B, R, n, R),
              torch.ones(R, n, R, dtype=torch.float64)),
             dict(x0=t(B, R, n, R), iters=3)),
+        "qr_batched": (qr_batched.qr_batched, (t(B, n * R, R),),
+                       dict(rows=False)),
     }
 
 

@@ -496,7 +496,8 @@ def test_gate_rejects_other_devices_and_types():
         "cg_solve_fused", "cg_matfree_fused", "cg_matfree_fused_batched",
         "env_chain_fused_batched", "als_fwd_bwd_fused_batched",
         "env_chain_A_fused", "lanczos_fused", "bicgstab_solve_fused",
-        "two_site_merge", "matmul_chain", "merge_resplit_chain"}
+        "two_site_merge", "matmul_chain", "merge_resplit_chain",
+        "qr_batched"}
 
 
 def _nonsymmetric_local(seed, R, cplx=False):

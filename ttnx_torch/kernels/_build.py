@@ -18,7 +18,9 @@ point exists for the dtype suffixes its signature lists: ``f32`` and
 site-resident routes of B7, B4/B5 and B6, the cluster routes of B2,
 B3, B8, B9 and B10 and the grid route of B1,
 ``bf16`` and ``f32`` for the contraction kernels, ``bf16`` alone for
-their tensor-core routes.
+their tensor-core routes. ``ttnx_qr_batched_f32`` and ``_f64``
+(``csrc/qr_batched.cu``) are the batched ALS's gauge QR, which replaces
+no TPU kernel.
 """
 
 from __future__ import annotations
@@ -101,6 +103,8 @@ _SIGNATURES = {
     "merge_resplit_chain": ([P, P, P, P, I, I, I, I, I, P], MM),
     "merge_resplit_chain_wgmma": ([P, P, P, P, I, I, I, I, I, P],
                                   ("bf16",)),
+    # V, Q, R, B, m, k, rows, stream; 1 <= k <= m <= 128
+    "qr_batched": ([P, P, P, I, I, I, I, P], REAL),
 }
 # size queries (no stream, no dtype suffix) -> argument types; return
 # c_longlong

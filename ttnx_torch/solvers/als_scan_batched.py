@@ -9,7 +9,9 @@ torch ops; ``solver='cg_fused'`` takes, for real dtypes, kernel B6
 stacks and kernel B5 (:func:`ttnx_torch.kernels.local_cg_mf.
 cg_matfree_fused_batched`) for every local solve, at every R; complex
 dtypes stay on the plain path. Every local CG is warm-started from the
-transported current iterate; the gauge is QR.
+transported current iterate; the gauge is QR: on that fused route the
+hand-written batched QR (:func:`ttnx_torch.kernels.qr_batched.qr_batched`,
+one launch a site for the whole batch), else ``torch.linalg.qr``.
 """
 
 from __future__ import annotations
@@ -23,6 +25,7 @@ from ttnx_torch.kernels.env_chain import (env_chain_batched_plain,
                                           right_env_update)
 from ttnx_torch.kernels.local_cg_mf import (cg_matfree_batched_plain,
                                             cg_matfree_fused_batched)
+from ttnx_torch.kernels.qr_batched import qr_batched, qr_batched_plain
 from ttnx_torch.utils.profiling import span
 
 __all__ = ["als_sweeps_b"]
@@ -75,6 +78,7 @@ def als_sweeps_b(A_stack, b_batch, x_batch, masks, sweep_count: int = 2,
     Rb = b_batch.shape[2]
     fused = solver == "cg_fused" and not dt.is_complex
     chain = env_chain_fused_batched if fused else env_chain_batched_plain
+    gauge = qr_batched if fused else qr_batched_plain
 
     def envs(x, left):
         with span("ttnx.als.env"):
@@ -95,7 +99,7 @@ def als_sweeps_b(A_stack, b_batch, x_batch, masks, sweep_count: int = 2,
                                 b_batch[:, k], Rb_envs[:, k + 1], masks[k],
                                 m_r, cg_iters, solver, v0=warm)
             with span("ttnx.als.orth"):
-                q, r = torch.linalg.qr(V.reshape(Bb, R * n, R))
+                q, r = gauge(V.reshape(Bb, R * n, R))
                 core = (q * m_r[None, None, :]).reshape(Bb, R, n, R)
                 T = r * m_r[None, :, None]
             with span("ttnx.als.env"):
@@ -119,11 +123,9 @@ def als_sweeps_b(A_stack, b_batch, x_batch, masks, sweep_count: int = 2,
                                 b_batch[:, k], Rb_env, m_l, masks[k + 1],
                                 cg_iters, solver, v0=warm)
             with span("ttnx.als.orth"):
-                qt, rt = torch.linalg.qr(
-                    V.reshape(Bb, R, n * R).transpose(1, 2))
-                core = qt.transpose(1, 2).reshape(Bb, R, n, R) \
-                    * m_l[None, :, None, None]
-                T = rt.transpose(1, 2) * m_l[None, None, :]
+                qt, rt = gauge(V.reshape(Bb, R, n * R), rows=True)
+                core = qt.reshape(Bb, R, n, R) * m_l[None, :, None, None]
+                T = rt * m_l[None, None, :]
             with span("ttnx.als.env"):
                 Renv = right_env_update(core, A_stack[k], Renv)
                 Rb_env = right_env_b_update(core, b_batch[:, k], Rb_env)
