@@ -121,7 +121,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    against the sparse-LU oracle (rel <= 1e-3), the last step's residual
    with the exact operators (<= 1e-2), kernels against plain (rel <=
    1e-4), launches per step (B10 22 on route "cluster", B1 1 on route
-   "staged" at RB = 96, B2 1 right + 1 left, B3/B4 0).
+   "grid" at RB = 64, the operator packed at its exact rank 3 padded to
+   RA = 4; B2 1 right + 1 left on route "cluster"; B3/B4 0).
 9. Contraction path at the bench's shapes, bf16: the two-site merge of
    the chain's cores (B13), merge_resplit_chain at 2048 iterations (B11)
    and matmul_chain at 1024 (B12), each once for its launch count, then
@@ -436,25 +437,15 @@ def plain_versions():
     return solver_calls(lambda name, kernel, plain: plain)
 
 
-@contextlib.contextmanager
-def route_log(*names):
-    """Inside the block every call of the named wrappers through the solver
-    modules appends the route its launch took to ``log[name]``; yields
-    ``log``."""
-    log = {name: [] for name in names}
+def routes_of(name, before=None):
+    """``{route: launches}`` of wrapper ``name`` since ``before`` (an
+    earlier ``dispatch.route_counts()`` reading), else since the last
+    reset of the counts."""
+    from ttnx_torch.kernels.dispatch import route_counts
 
-    def replace(name, kernel, plain):
-        if name not in log:
-            return kernel
-
-        def call(*args, **kwargs):
-            out = kernel(*args, **kwargs)
-            log[name].append(kernel.route)
-            return out
-        return call
-
-    with solver_calls(replace):
-        yield log
+    was = (before or {}).get(name, {})
+    return {r: n - was.get(r, 0) for r, n in route_counts()[name].items()
+            if n > was.get(r, 0)}
 
 
 def cuda_ms(fn, reps: int = 10, repeats: int = 5) -> float:
@@ -904,7 +895,9 @@ def timed_chain(step_fn, us):
 
 
 def phase_main_path(device):
-    from ttnx_torch.kernels.dispatch import launch_counts, reset_launch_counts
+    from ttnx_torch.kernels.dispatch import (launch_counts,
+                                             reset_launch_counts,
+                                             route_counts)
     from ttnx_torch.kernels.local_cg_mf import cg_matfree_fused
     from ttnx_torch.utils.flops import cn_step_flops
 
@@ -913,10 +906,8 @@ def phase_main_path(device):
     reset_launch_counts()
     for rmax in RANKS:
         step_fn, us, unpack = setup(rmax, device)
-        before = launch_counts()
-        with route_log("cg_solve_fused", "gram_chain_fused",
-                       *B2) as routes:
-            one = step_fn(us)
+        before, routes = launch_counts(), route_counts()
+        one = step_fn(us)
         torch.cuda.synchronize()
         per_step = {k: v - before[k] for k, v in launch_counts().items()}
         dense_k = 2 * rmax * rmax <= 1024  # M = R n R: B3 below, B4 above
@@ -931,16 +922,16 @@ def phase_main_path(device):
         b4 = None if dense_k else cg_matfree_fused.route
         if b4 not in (None, "resident"):
             raise RuntimeError(f"r{rmax}: B4 took route {b4}, not resident")
-        b3 = routes["cg_solve_fused"]
-        if b3 != ["cluster"] * per_step["cg_solve_fused"]:
+        b3 = routes_of("cg_solve_fused", routes)
+        if set(b3) - {"cluster"}:
             raise RuntimeError(f"r{rmax}: B3 took routes {b3}, not all "
                                f"cluster")
-        b2 = routes[B2[0]] + routes[B2[1]]
-        if b2 != ["cluster"] * 2:
+        b2 = [routes_of(name, routes) for name in B2]
+        if b2 != [{"cluster": 1}] * 2:
             raise RuntimeError(f"r{rmax}: B2 took routes {b2}, not all "
                                f"cluster")
-        b1 = routes["gram_chain_fused"]
-        if b1 != ["grid"]:
+        b1 = routes_of("gram_chain_fused", routes)
+        if b1 != {"grid": 1}:
             raise RuntimeError(f"r{rmax}: B1 took routes {b1}, not grid")
         if one.shape != us.shape or not bool(torch.isfinite(one).all()):
             raise RuntimeError(f"r{rmax}: step output is not a finite "
@@ -960,8 +951,8 @@ def phase_main_path(device):
             f"GFLOP/s) | plain {plain_ms:.3f} ms/step | traj rel "
             f"{rel:.3e} (<= 1e-3) residual {res:.3e} (<= 1e-2) | kernel vs "
             f"plain 8-step rel {agree:.3e} (<= 1e-4) | launches/step "
-            f"{per_step} | B1 route {b1[0]} | B2 routes {set(b2)}"
-            f"{f' | B4 route {b4}' if b4 else ''}"
+            f"{per_step} | B1 route {set(b1)} | B2 routes "
+            f"{set(b2[0]) | set(b2[1])}{f' | B4 route {b4}' if b4 else ''}"
             f"{f' | B3 routes {set(b3)}' if b3 else ''}")
         if not (np.isfinite(rel) and rel <= 1e-3 and res <= 1e-2
                 and agree <= 1e-4):
@@ -1023,12 +1014,11 @@ def phase_batched_path(device):
     route_counts = {}
     for route, (run, applies, launched) in routes.items():
         reset_launch_counts()
-        with route_log("env_chain_fused_batched") as taken:
-            run()
+        run()
         torch.cuda.synchronize()
         counts = launch_counts()
-        b6 = taken["env_chain_fused_batched"]
-        if route == "explicit_kernel" and b6 != ["resident"] * 2:
+        b6 = routes_of("env_chain_fused_batched")
+        if route == "explicit_kernel" and b6 != {"resident": 2}:
             raise RuntimeError(f"{route}: B6 took routes {b6}, not both "
                                f"resident")
         want = {k: launched.get(k, 0) for k in counts}
@@ -1219,18 +1209,16 @@ def phase_dmrg_path(device):
         for solver in (("lanczos", "lanczos_fused") if rmax == 16
                        else ("lanczos",)):
             reset_launch_counts()
-            with route_log("lanczos_fused", "env_chain_A_fused") as routes:
-                ms, x, m, E = timed_sweeps(p, solver)
+            ms, x, m, E = timed_sweeps(p, solver)
             counts = launch_counts()
             for label, name in (("B9", "lanczos_fused"),
                                 ("B8", "env_chain_A_fused")):
-                taken = routes[name]
-                if taken != ["cluster"] * counts[name]:
+                taken = routes_of(name)
+                if set(taken) - {"cluster"}:
                     raise RuntimeError(f"dmrg d={d} r{rmax} {solver}: "
                                        f"{label} took routes "
-                                       f"{sorted(set(taken))}, not all "
-                                       f"cluster")
-            b9 = routes["lanczos_fused"]
+                                       f"{sorted(taken)}, not all cluster")
+            b8, b9 = routes_of("env_chain_A_fused"), routes_of("lanczos_fused")
             sweeps = 1 + 3 * DMRG_SWEEPS
             want = dict.fromkeys(counts, 0)
             want["env_chain_A_fused"] = 2 * sweeps
@@ -1258,7 +1246,7 @@ def phase_dmrg_path(device):
                 f"ranks {[int(v) for v in m.sum(dim=1).tolist()]} | kernel "
                 f"vs plain E rel {agree:.3e} (<= 1e-5) overlap "
                 f"{overlap:.9f} (>= 1 - 1e-4) | launches/sweep {per_sweep}"
-                f" | B8 routes {set(routes['env_chain_A_fused'])}"
+                f" | B8 routes {set(b8)}"
                 f"{f' | B9 routes {set(b9)}' if b9 else ''}")
             if not (finite and rel <= 1e-5 and agree <= 1e-5
                     and overlap >= 1 - 1e-4):
@@ -1325,19 +1313,17 @@ def phase_tdvp_path(device):
     tol = starts[0]["tol"]
     reset_launch_counts()
     t0 = time.perf_counter()
-    with route_log("env_chain_A_fused") as routes:
-        _, _, Eb = batched_dmrg_eig_sweeps(A6, xb, mb, tol, tol, n_sweeps=2,
-                                           lanczos_iters=DMRG_ITERS,
-                                           split="gram")
-        torch.cuda.synchronize()
+    _, _, Eb = batched_dmrg_eig_sweeps(A6, xb, mb, tol, tol, n_sweeps=2,
+                                       lanczos_iters=DMRG_ITERS, split="gram")
+    torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     counts = launch_counts()
     if counts["env_chain_A_fused"] != 2 * 2 * B:
         raise RuntimeError(f"batched dmrg: launches {counts}")
-    b8 = routes["env_chain_A_fused"]
-    if b8 != ["cluster"] * len(b8):
-        raise RuntimeError(f"batched dmrg: B8 took routes {sorted(set(b8))},"
-                           f" not all cluster")
+    b8 = routes_of("env_chain_A_fused")
+    if set(b8) - {"cluster"}:
+        raise RuntimeError(f"batched dmrg: B8 took routes {sorted(b8)}, not "
+                           f"all cluster")
     singles = []
     for i in range(B):
         x, m, Es = xb[i], mb[i], []
@@ -1661,21 +1647,24 @@ def phase_gram_envA_routes(device):
 
 
 def phase_convection_path(device):
-    """8: the convection-diffusion CN step; returns the launch counts."""
-    from ttnx_torch.core.algebra import add_op
-    from ttnx_torch.core.tt import id_tto
+    """8: the convection-diffusion CN step; returns the launch counts.
+    ``I -/+ h/2 A`` is tridiagonal Toeplitz, of exact QTT rank 3: the step
+    packs it at RA = 4, so RB = 4 CONV_RMAX = 64 takes B1's route grid and
+    B2 its route cluster."""
     from ttnx_torch.entry import (convection_cn_operators, convection_operator,
                                   dense_cn_reference)
     from ttnx_torch.kernels.dispatch import launch_counts, reset_launch_counts
+    from ttnx_torch.solvers.round_scan import _cn_parts
     from ttnx_torch.utils.flops import cn_step_bicgstab_flops
 
     hg = 1.0 / (2 ** D + 1)
     step_fn, us, unpack, u0 = conv_setup(device)
     reset_launch_counts()
-    with route_log("gram_chain_fused") as routes:
-        one = step_fn(us)
+    one = step_fn(us)
     torch.cuda.synchronize()
     per_step = launch_counts()
+    b1 = routes_of("gram_chain_fused")
+    b2 = [routes_of(name) for name in B2]
     want = dict.fromkeys(per_step, 0)
     want.update({"gram_chain_fused": 1, "right_env_chain_fused": 1,
                  "left_env_chain_fused": 1,
@@ -1686,9 +1675,10 @@ def phase_convection_path(device):
     b10 = wrappers()["bicgstab_solve_fused"][0].route
     if b10 != "cluster":
         raise RuntimeError(f"convection: B10 took route {b10}, not cluster")
-    b1 = routes["gram_chain_fused"]
-    if b1 != ["staged"]:  # RB = 96: outside route grid's shapes
-        raise RuntimeError(f"convection: B1 took routes {b1}, not staged")
+    if b1 != {"grid": 1}:
+        raise RuntimeError(f"convection: B1 took routes {b1}, not grid")
+    if b2 != [{"cluster": 1}] * 2:
+        raise RuntimeError(f"convection: B2 took routes {b2}, not cluster")
     if one.shape != us.shape or not bool(torch.isfinite(one).all()):
         raise RuntimeError("convection: step output is not a finite stack")
     ms, v7, v8 = timed_chain(step_fn, us)
@@ -1704,9 +1694,10 @@ def phase_convection_path(device):
         plain_ms, _, p8 = timed_chain(step_fn, us)
     agree = float(np.linalg.norm(d8 - dense(unpack, p8))
                   / np.linalg.norm(d8))
-    # the MPO rank only: built on the host, as id_tto is
-    RA = max(add_op(id_tto(D, device="cpu"),
-                    convection_operator(D, CONV_C, "cpu")).ranks)
+    # the step's packed operator rank, its operands formed on the host
+    RA = _cn_parts(convection_operator(D, CONV_C, "cpu"), H_STEP, CONV_RMAX,
+                   (2,) * D, (1,) + (CONV_RMAX,) * (D - 1) + (1,),
+                   torch.float32)["RA"]
     gflops = cn_step_bicgstab_flops(D, CONV_RMAX, RA, RA,
                                     bicg_iters=BICG_ITERS) / (ms * 1e-3) / 1e9
     log(f"convection cn_step d={D} r{CONV_RMAX} c={CONV_C:g} f32 "
@@ -1715,7 +1706,8 @@ def phase_convection_path(device):
         f"(<= 1e-3; the state moved {moved:.3e}) residual {res:.3e} (<= "
         f"1e-2) | kernel vs plain 8-step rel {agree:.3e} (<= 1e-4) | "
         f"launches/step { {k: v for k, v in per_step.items() if v} } | "
-        f"B10 route {b10} | B1 route {b1[0]}")
+        f"B10 route {b10} | B1 route {set(b1)} | B2 routes "
+        f"{set(b2[0]) | set(b2[1])} | RA {RA}")
     if not (np.isfinite(rel) and rel <= 1e-3 and res <= 1e-2
             and agree <= 1e-4):
         raise RuntimeError(f"convection failed its gates: rel={rel:.3e} "
@@ -1968,9 +1960,9 @@ def phase_qtt_path(device):
 
     als_eigsolve_scan(p["A"], p["x0"], n_sweeps=1)  # warm-up
     reset_launch_counts()
-    with route_log("env_chain_A_fused") as routes:
-        ms, (E, x) = wall(als)
+    ms, (E, x) = wall(als)
     counts = launch_counts()
+    b8 = routes_of("env_chain_A_fused")
     want = dict.fromkeys(counts, 0)
     want["env_chain_A_fused"] = 2 * ALS_EIG_SWEEPS
     with plain_versions():
@@ -1985,15 +1977,14 @@ def phase_qtt_path(device):
         f"{E[-1]:.9f} dense {E0:.9f} rel {rel:.3e} (<= 1e-5) | min E - E0 "
         f"{float(E.min() - E0):.3e} | kernel vs plain E rel {agree:.3e} "
         f"(<= 1e-5) overlap {overlap:.9f} (>= 1 - 1e-4) | B8 launches "
-        f"{counts['env_chain_A_fused']} routes {routes['env_chain_A_fused']}")
+        f"{counts['env_chain_A_fused']} routes {b8}")
     if not (finite and bounded and rel <= 1e-5 and agree <= 1e-5
             and overlap >= 1 - 1e-4 and counts == want
-            and routes["env_chain_A_fused"] == ["cluster"] * len(
-                routes["env_chain_A_fused"])):
+            and not set(b8) - {"cluster"}):
         raise RuntimeError(f"als_eigsolve failed its gates: finite={finite} "
                            f"bounded={bounded} rel={rel:.3e} "
                            f"agree={agree:.3e} overlap={overlap} launches "
-                           f"{counts} routes {routes}")
+                           f"{counts} routes {b8}")
     seen = record_calls(als)
     for args, kwargs in env_A_inputs(seen):
         side = " right" if not kwargs.get("left") else " left"

@@ -1,9 +1,9 @@
 """Device time and idle time by solver phase in the two benchmark cells, read
 from the phase spans of ``ttnx_torch.utils.profiling.span``.
 
-    python3 scripts/probe_torch_spans.py [--seed 7] [--seconds 15]
+    python3 scripts/probe_torch_spans.py [--seed 7] [--seconds 15] [--cells ...]
 
-Needs a CUDA card. For each cell of ``portbench`` (``heat_cn_d12_r64.stream``,
+Needs a CUDA card. For each cell of ``--cells`` (default ``heat_cn_d12_r64.stream``,
 ``heat_batch_d12_r64.b512``): the cell's driver sets the port up from the
 seed, runs its warm-up and an untimed window of ``--seconds`` (the wall a
 unit, as the benchmark's measured window takes it), then windows of
@@ -276,13 +276,15 @@ def main():
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--seed", type=int, default=7)
     p.add_argument("--seconds", type=float, default=15.0)
+    p.add_argument("--cells", nargs="+", default=CELLS,
+                   help="benchmark cells to probe (default: %(default)s)")
     args = p.parse_args()
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA card")
     device = torch.device("cuda", 0)
     log(f"card: {card()}; torch {torch.__version__}")
     catalog = Catalog()
-    for name in CELLS:
+    for name in args.cells:
         probe_cell(catalog, name, args.seed, args.seconds, device)
         torch.cuda.empty_cache()
     off_cost()

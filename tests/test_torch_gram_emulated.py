@@ -147,8 +147,8 @@ def test_grid_route_emulated_refuses_other_shapes(emulator, R):
     (torch.float64, 12, 256, 2, "staged"), (torch.float32, 12, 64, 3,
                                             "staged")])
 def test_gram_route_table(dtype, d, R, n, route):
-    """Route grid exactly at f32, n = 2 and the heat CN step's RB; the
-    convection step's RB = 96 and f64 stay on staged."""
+    """Route grid exactly at f32, n = 2 and the CN steps' RB; RB = 96 and
+    f64 stay on staged."""
     assert gram_route(dtype, d, R, n) == route
     assert (route == "grid") == (R in GRID_RANKS and dtype == torch.float32
                                  and n == 2)

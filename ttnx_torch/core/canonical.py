@@ -13,7 +13,7 @@ import numpy as np
 import torch
 
 from ttnx_torch.core.linalg import thin_svd
-from ttnx_torch.core.tt import TTVector
+from ttnx_torch.core.tt import TTOperator, TTVector
 
 __all__ = [
     "orthogonalize",
@@ -21,6 +21,7 @@ __all__ = [
     "svdtrunc",
     "tt_compress",
     "tt_round",
+    "round_op",
 ]
 
 
@@ -148,3 +149,15 @@ def tt_round(x: TTVector, max_bond: int | None = None,
         cores[k + 1] = torch.einsum("ab,bnc->anc", transfer, cores[k + 1])
     ot = [1] * (d - 1) + [0]
     return TTVector(cores, ot)
+
+
+def round_op(A: TTOperator) -> TTOperator:
+    """``A`` at its exact TT ranks: :func:`tt_round` of the cores read as a
+    TT of physical size ``n_out * n_in``, dropping at each bond only the
+    directions whose discarded weight is under 1e-13 of the bond's total,
+    so the result represents ``A`` to about 1e-13. Round in float64, then
+    cast."""
+    x = tt_round(TTVector([c.reshape(c.shape[0], -1, c.shape[-1])
+                           for c in A.cores]), rel_tol=1e-13)
+    return TTOperator([c.reshape(c.shape[0], *a.shape[1:3], c.shape[-1])
+                       for c, a in zip(x.cores, A.cores)])

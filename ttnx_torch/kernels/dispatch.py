@@ -9,6 +9,9 @@ There is no fallback from a CUDA tensor to the plain version — a missing
 Each wrapper carries a plain integer ``launches`` attribute that it bumps
 once per kernel launch, so a run can show that its main path went through
 the kernels (``chip_smoke.py`` resets and reads them around the CN step).
+:func:`counted` files each launch under the route the wrapper chose (its
+``route`` attribute, ``"kernel"`` for a wrapper with one kernel), so
+:func:`route_counts` shows a shape that left a fast route as a count.
 
 :func:`counted` also puts two checks around every wrapper, on both routes
 and both devices. A kernel has no backward (the JAX package defines no
@@ -27,7 +30,8 @@ from types import SimpleNamespace
 
 import torch
 
-__all__ = ["use_kernel", "counted", "launch_counts", "reset_launch_counts",
+__all__ = ["use_kernel", "counted", "launch_counts", "route_counts",
+           "reset_launch_counts",
            "require_real", "require_mm_type", "can_fuse_local_cg",
            "refuse_grad", "check_nan", "NAN_TRAP"]
 
@@ -96,20 +100,26 @@ def check_nan(name: str, out) -> None:
 
 
 def counted(fn):
-    """Give a kernel wrapper its ``launches`` counter, the gradient gate on
-    all of its tensor arguments and the NaN trap on its outputs, and
-    register it."""
+    """Give a kernel wrapper its ``launches`` counter and its launches by
+    route, the gradient gate on all of its tensor arguments and the NaN
+    trap on its outputs, and register it."""
     name = fn.__name__
 
     @functools.wraps(fn)
     def gated(*args, **kwargs):
         refuse_grad(name, _tensors(args) + _tensors(kwargs.values()))
+        before = gated.launches
         out = fn(*args, **kwargs)
+        if gated.launches != before:
+            route = getattr(gated, "route", None) or "kernel"
+            gated.routes[route] = (gated.routes.get(route, 0)
+                                   + gated.launches - before)
         if NAN_TRAP.on:
             check_nan(name, out)
         return out
 
     gated.launches = 0
+    gated.routes = {}
     _COUNTED.append(gated)
     return gated
 
@@ -119,9 +129,16 @@ def launch_counts() -> dict[str, int]:
     return {fn.__name__: fn.launches for fn in _COUNTED}
 
 
+def route_counts() -> dict[str, dict[str, int]]:
+    """``{wrapper name: {route: launches}}`` for every registered kernel
+    wrapper, counted since the last reset."""
+    return {fn.__name__: dict(fn.routes) for fn in _COUNTED}
+
+
 def reset_launch_counts() -> None:
     for fn in _COUNTED:
         fn.launches = 0
+        fn.routes = {}
 
 
 def can_fuse_local_cg(dtype, M: int) -> bool:

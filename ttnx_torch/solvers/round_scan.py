@@ -17,7 +17,9 @@ import torch
 
 from ttnx_torch.core.linalg import thin_svd
 from ttnx_torch.core.tt import r_and_d_to_rks
+from ttnx_torch.kernels.env_chain import env_route
 from ttnx_torch.kernels.gram import gram_chain_fused, gram_chain_plain
+from ttnx_torch.kernels.local_cg_mf import RESIDENT_SHAPES
 from ttnx_torch.solvers.als_scan import (SOLVERS, als_sweeps, pack_op,
                                          pack_tt, rank_masks, unpack_tt)
 from ttnx_torch.utils.profiling import span
@@ -207,20 +209,33 @@ def cn_step(lhs_stack, rhs_stack, u_stack, guess_noise, masks_u,
                           cg_iters=cg_iters)
 
 
+def _packed_rank(r: int) -> int:
+    """The smallest operator rank at least ``r`` that the CN step's
+    kernels are instantiated for (B4's resident shapes that B2's env route
+    takes), else ``r``."""
+    fast = sorted({ra for R, n, ra in RESIDENT_SHAPES
+                   if env_route(torch.float32, 1, R, n, ra, R) != "staged"})
+    return next((ra for ra in fast if ra >= r), r)
+
+
 def _cn_parts(A, h: float, rmax: int, dims, u_rks, dtype):
     """The operands of a CN step on ``A``'s device: ``I -/+ h/2 A``
     packed, the state's feasible ranks and masks, the masks of the applied
-    chain and of its rounding, and the masked guess noise."""
+    chain and of its rounding, and the masked guess noise. Both operators
+    are formed and rounded to their exact ranks in double precision, then
+    cast and packed at :func:`_packed_rank` of the larger."""
     from ttnx_torch.core.algebra import add_op, scale_op
+    from ttnx_torch.core.canonical import round_op
     from ttnx_torch.core.tt import id_tto
 
     d = len(dims)
     device = A.device
-    A = A.astype(dtype)
-    eye = id_tto(d, dtype=dtype, device=device)
-    lhs = add_op(eye, scale_op(-h / 2, A))
-    rhs = add_op(eye, scale_op(h / 2, A))
-    RA = max(rhs.ranks)
+    wide = torch.complex128 if dtype.is_complex else torch.float64
+    A = A.astype(wide)
+    eye = id_tto(d, dtype=wide, device=device)
+    lhs = round_op(add_op(eye, scale_op(-h / 2, A))).astype(dtype)
+    rhs = round_op(add_op(eye, scale_op(h / 2, A))).astype(dtype)
+    RA = _packed_rank(max(lhs.ranks + rhs.ranks))
     u_rks = r_and_d_to_rks(u_rks, dims, rmax=rmax)
     real_dt = torch.empty((), dtype=dtype).real.dtype
     masks_u = rank_masks(u_rks, rmax, dtype=real_dt, device=device)
@@ -243,7 +258,7 @@ def _cn_parts(A, h: float, rmax: int, dims, u_rks, dtype):
     for i in range(d):
         noise_np[i, : u_rks[i], :, : u_rks[i + 1]] = 1e-3 * rng.standard_normal(
             (u_rks[i], 2, u_rks[i + 1]))
-    return dict(lhs_stack=pack_op(lhs, max(lhs.ranks)),
+    return dict(lhs_stack=pack_op(lhs, RA),
                 rhs_stack=pack_op(rhs, RA), RA=RA, u_rks=u_rks,
                 masks_u=masks_u, masks_big=masks_big, masks_out=masks_out,
                 guess_noise=torch.as_tensor(noise_np, dtype=dtype,
