@@ -13,11 +13,16 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    and median time of kernel and plain version. B3 also on a seeded SPD
    K at M = 509 (neither a multiple of 4 nor of 8), f32 and f64, and twice
    on the same inputs at r16 in f32 (bit-identical), as B1 and B2 are at
-   every rank in f32. Each B1, B2, B3 and B4 line names the kernel route
+   every rank in f32 and B4 at ranks 32 and 64. Each B1, B2, B3 and B4 line names the kernel route
    the wrapper chose (cg_route: "cluster" for f32 at M <= 672, else "l2";
    env_route: B2 "cluster" for f32 at ranks 16, 32 and 64, else "staged";
    gram_route: B1 "grid" for f32 at RB = 64, 128 and 256, else
-   "staged").
+   "staged"; matfree_route: B4 "cluster" for f32 at ranks 32 and 64, else
+   "streamed"). Then B4 by route at ranks 32 and 64 in f32 on the same
+   inputs: route "cluster" against route "resident" (B5's kernel on a
+   batch of one), timed (CUDA events) interleaved: cluster, resident,
+   resident, cluster, beside B4's bound, with the two routes' max relative
+   difference (<= 1e-4).
 3b. Batched kernels: B5-B7 against their plain versions at R = 64 and
    32, float32 and float64, on B = 8 distinct problems: B5 and B6 on the
    inputs one als_sweeps_b call gives them (b[i] = (1 + 0.2 i) u_s, x[i] =
@@ -32,9 +37,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    and 32, else "staged") and its share of its bound. Each B7 line names
    the kernel
    route the wrapper chose (sweep_route: "site" for f32 at R = 64 and 32
-   without a refine stage, else "folded"), each B4/B5 line in phases 3
-   and 3b likewise (matfree_route: "resident" for f32 at R = 64 and 32,
-   else "streamed"). Then the batched gauge QR (qr_batched, no TPU twin)
+   without a refine stage, else "folded"), each B5 line likewise
+   (matfree_route: "resident" for a batch in f32 at R = 64 and 32, else
+   "streamed"). Then the batched gauge QR (qr_batched, no TPU twin)
    against torch.linalg.qr, its plain version and the library's time, at
    B = 512, R = 64 and 32 (R n x R), both layouts, f32 (<= 1e-4) and f64
    (<= 1e-10), on seeded matrices of condition about 10, every other one
@@ -48,8 +53,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    ms/step and GFLOP/s through the kernels and through the plain versions,
    agreement of the two 8-step states (rel <= 1e-4), and the kernel launch
    counts per step (B1 = 1, B2 = 1 right + 1 left, B3/B4 = 22/0 at rank 16,
-   0/22 at ranks 32 and 64), every B2 and B3 launch on route "cluster",
-   B4 on route "resident" and B1 on route "grid".
+   0/22 at ranks 32 and 64), every B2, B3 and B4 launch on route
+   "cluster" and B1 on route "grid".
 5. Batched path: 512 rank-64 d=12 implicit heat solves (f32, no TF32)
    through both routes of the bench ladder, explicit_kernel (als_sweeps_b,
    cg_fused, 16 warm CG iterations: B6 2 launches on route "resident",
@@ -208,7 +213,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    against the closed form (rel <= 1e-3), the residual (<= 1e-2), the
    8-step state against make_cn_step at the same settings (rel <= 1e-4),
    launches a step B1 1 on route "grid", B2 1 + 1 on "cluster", B4 22 on
-   "resident"; (b) the same step with force_tp=True on 2 and then 4 gloo
+   "cluster"; (b) the same step with force_tp=True on 2 and then 4 gloo
    ranks spawned on cuda:0 (CUDA tensors, route "gloo-cuda"): every rank's
    8-step state against 13a's (rel <= 1e-4) and the closed form, its own
    launches a step (B2 1 + 1, B4 22, B1 0) and ms/step beside 13a's; (c)
@@ -370,7 +375,8 @@ CN_KERNELS = ("gram_chain_fused", "right_env_chain_fused",
               "left_env_chain_fused", "cg_solve_fused", "cg_matfree_fused")
 B2 = ("right_env_chain_fused", "left_env_chain_fused")
 # held twice on the CN step's inputs for bit-identity in f32
-HELD_TWICE = B2 + ("cg_solve_fused", "gram_chain_fused")
+HELD_TWICE = B2 + ("cg_solve_fused", "gram_chain_fused",
+                   "cg_matfree_fused")
 
 
 def log(msg: str) -> None:
@@ -700,6 +706,40 @@ def spd_problem(M, dtype, device):
                   rng.standard_normal(M)))
 
 
+def b4_by_route(rmax, row, args, kwargs):
+    """B4 on route cluster against route resident (B5's kernel on a batch
+    of one) on the same inputs: max relative difference and CUDA-event
+    times interleaved, beside the bound of ``row`` (the hold's)."""
+    from ttnx_torch.kernels.local_cg_mf import (cg_matfree_fused,
+                                                cg_matfree_fused_batched)
+
+    L, Ac, Renv, rhs, mask = args
+    x0 = kwargs.get("x0")
+    one = dict(kwargs, x0=None if x0 is None else x0[None])
+    runs = {"cluster": lambda: cg_matfree_fused(*args, **kwargs),
+            "resident": lambda: cg_matfree_fused_batched(
+                L[None], Ac, Renv[None], rhs[None], mask, **one)[0]}
+    got = {route: run() for route, run in runs.items()}
+    torch.cuda.synchronize()
+    if (cg_matfree_fused.route, cg_matfree_fused_batched.route) != (
+            "cluster", "resident"):
+        raise RuntimeError(f"B4 r{rmax}: routes {cg_matfree_fused.route}, "
+                           f"{cg_matfree_fused_batched.route}")
+    _, rel = max_err(got["cluster"], got["resident"])
+    ms = {route: [] for route in runs}
+    for route in ("cluster", "resident", "resident", "cluster"):
+        ms[route].append(cuda_ms(runs[route]))
+    bound_ms, by = bound(row)
+    log(f"kernel B4 by route r{rmax} float32: cluster "
+        f"{ms['cluster'][0]:.4f}, {ms['cluster'][1]:.4f} ms | resident "
+        f"{ms['resident'][0]:.4f}, {ms['resident'][1]:.4f} ms | bound "
+        f"{bound_ms:.5f} ms ({by}) | cluster against resident max_rel_diff "
+        f"{rel:.3e} (<= 1e-4)")
+    if not rel <= 1e-4:
+        raise RuntimeError(f"B4 r{rmax}: routes cluster and resident "
+                           f"differ by {rel:.3e}")
+
+
 def phase_kernels(device):
     rows = []
     for dtype in (torch.float32, torch.float64):
@@ -709,6 +749,8 @@ def phase_kernels(device):
                 rows.append(hold(name, rmax, dtype, args, kwargs))
                 if name in HELD_TWICE and dtype == torch.float32:
                     deterministic(name, args, kwargs)
+                if name == "cg_matfree_fused" and dtype == torch.float32:
+                    b4_by_route(rmax, rows[-1], args, kwargs)
         K, rhs, x0 = spd_problem(509, dtype, device)
         rows.append(hold("cg_solve_fused", 16, dtype, (K, rhs),
                          dict(x0=x0, iters=CG_ITERS), tag=" M=509 SPD"))
@@ -898,7 +940,6 @@ def phase_main_path(device):
     from ttnx_torch.kernels.dispatch import (launch_counts,
                                              reset_launch_counts,
                                              route_counts)
-    from ttnx_torch.kernels.local_cg_mf import cg_matfree_fused
     from ttnx_torch.utils.flops import cn_step_flops
 
     hg = 1.0 / (2 ** D + 1)
@@ -919,9 +960,10 @@ def phase_main_path(device):
         if per_step != want:
             raise RuntimeError(f"r{rmax}: launches per step {per_step}, "
                                f"expected {want}")
-        b4 = None if dense_k else cg_matfree_fused.route
-        if b4 not in (None, "resident"):
-            raise RuntimeError(f"r{rmax}: B4 took route {b4}, not resident")
+        b4 = routes_of("cg_matfree_fused", routes)
+        if b4 != ({} if dense_k else {"cluster": 2 * (D - 1)}):
+            raise RuntimeError(f"r{rmax}: B4 took routes {b4}, not all "
+                               f"cluster")
         b3 = routes_of("cg_solve_fused", routes)
         if set(b3) - {"cluster"}:
             raise RuntimeError(f"r{rmax}: B3 took routes {b3}, not all "
@@ -952,7 +994,7 @@ def phase_main_path(device):
             f"{rel:.3e} (<= 1e-3) residual {res:.3e} (<= 1e-2) | kernel vs "
             f"plain 8-step rel {agree:.3e} (<= 1e-4) | launches/step "
             f"{per_step} | B1 route {set(b1)} | B2 routes "
-            f"{set(b2[0]) | set(b2[1])}{f' | B4 route {b4}' if b4 else ''}"
+            f"{set(b2[0]) | set(b2[1])}{f' | B4 routes {set(b4)}' if b4 else ''}"
             f"{f' | B3 routes {set(b3)}' if b3 else ''}")
         if not (np.isfinite(rel) and rel <= 1e-3 and res <= 1e-2
                 and agree <= 1e-4):
@@ -2772,7 +2814,7 @@ def dist_nccl(device, smi, exact, hg, total):
               "B4": local_cg_mf.cg_matfree_fused.route}
     if run["per_step"] != want or routes != {"B1": "grid",
                                              "B2": {"cluster"},
-                                             "B4": "resident"}:
+                                             "B4": "cluster"}:
         raise RuntimeError(f"13a: launches/step {run['per_step']}, expected "
                            f"{want}; routes {routes}")
     add_counts(total, run["launches"])
@@ -3172,6 +3214,8 @@ def summarize(rows, path_rows, counts):
             source = "ttnx_torch/csrc/als_sweep_site.cu"
         if r.get("route") == "resident" and label in ("B4", "B5"):
             source = "ttnx_torch/csrc/local_cg_site.cu"
+        if r.get("route") == "cluster" and label == "B4":
+            source = "ttnx_torch/csrc/local_cg_cluster.cu"
         if r.get("route") in ("resident", "cluster") and label in ("B2",
                                                                    "B6",
                                                                    "B8"):

@@ -3,13 +3,23 @@
     python3 scripts/probe_torch_matfree.py [--step0]
     python3 scripts/probe_torch_matfree.py --paths
     python3 scripts/probe_torch_matfree.py --b7-parent FILE [--repeats N]
+    python3 scripts/probe_torch_matfree.py --floor [--seed N]
+    python3 scripts/probe_torch_matfree.py --ptx-parent DIR
 
 Builds ``ttnx_torch/csrc/local_cg_mf.cu`` (PR 1's kernel, route
 ``streamed``), ``ttnx_torch/csrc/local_cg_site.cu`` (route ``resident``),
-the variants of ``VARIANTS`` (text edits of a source, one library each)
+``ttnx_torch/csrc/local_cg_cluster.cu`` (B4's route ``cluster``, one
+problem), the variants of ``VARIANTS`` (text edits of a source, one library each)
 and B7's ``als_sweep_site.cu``, each alone with ``nvcc -Xptxas -v``, and
 prints every kernel instantiation's registers, spill bytes and shared
 memory.
+
+``--ptx-parent DIR`` only compares B5's kernel (``local_cg_site.cu``) and
+B7's site kernel (``als_sweep_site.cu``) with those of DIR (an earlier
+checkout's ``ttnx_torch/csrc``): their sources with every header byte for
+byte, and the digests of three PTX compiles of each side (nvcc numbers
+B7's virtual registers differently from compile to compile of one
+source): a change elsewhere must leave them identical.
 
 ``--b7-parent FILE`` only compares B7's code with an earlier
 ``als_sweep_site.cu``: whether the two sources give the same PTX (the
@@ -36,9 +46,24 @@ problems (phase 3b) and on phase 5's B = 512 problem. On each:
   of 5 calls each (1 at B = 512).
 
 Then (and alone with ``--paths``) the paths the kernels serve, with
-B4/B5's route forced to ``streamed`` and as chosen, interleaved in this
-one process: the CN step at r32 and r64 (ms/step) and the explicit batched
-route at B = 512 (ms/call), host-timed as ``chip_smoke.py`` times them.
+B4/B5's route as chosen and forced to the route before it (B4
+``resident``, B5 ``streamed``), interleaved in this one process: the CN
+step at r32 and r64 (ms/step) and the explicit batched route at B = 512
+(ms/call), host-timed as ``chip_smoke.py`` times them.
+
+``--floor`` only bounds what a faster B4 can give the benchmark's two CN
+cells (``heat_cn_d12_r64.stream``, ``heat2d_cn_d20_r64.stream2d``), each
+set up by its own driver from ``--seed``'s draws: ms/step (host clock,
+``FLOOR_STEPS`` steps ended by a synchronize) with B4 as chosen and with
+B4 replaced by a stub that returns its warm start (a B4 that costs
+nothing: the floor of the step), interleaved: as chosen, stub, stub, as
+chosen. Then the host's issue time of one ALS site, untraced: one
+``als_sweeps`` call of the step (B4 as chosen) issued behind a
+``torch.cuda._sleep`` that holds the card, so that no launch waits for
+the device; the host's time from one local solve's start to the next is
+the time it takes to issue a site. An interval as long as the sleep
+means that the host waited for the card there (a synchronize, or a full
+launch queue).
 
 ``--step0`` times only PR 1's kernel (the split); the other kernels are
 built and checked. Needs a CUDA card with nvcc (sm_90a); imports torch,
@@ -50,9 +75,11 @@ from __future__ import annotations
 import argparse
 import ctypes
 import hashlib
+import shutil
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import torch
@@ -90,6 +117,7 @@ NO_EPILOGUE_MASK = ("const float4 mk = ld4(mask + o), vv = ld4(v + o);",
 VARIANTS = {
     "streamed (PR 1)": ("local_cg_mf.cu", "cg_matfree_batched", []),
     "resident": ("local_cg_site.cu", "cg_matfree_site", []),
+    "cluster": ("local_cg_cluster.cu", "cg_matfree_cluster", []),
     "resident, epilogue loads after the L product": (
         "local_cg_site.cu", "cg_matfree_site", [LATE_LOADS, LATE_LOADS_2]),
     "resident, no mask in the epilogue (measurement only)": (
@@ -97,6 +125,9 @@ VARIANTS = {
     "B7 site kernel": ("als_sweep_site.cu", None, []),
 }
 MEASUREMENT_ONLY = ("measurement only",)
+CN_CELLS = ("heat_cn_d12_r64.stream", "heat2d_cn_d20_r64.stream2d")
+FLOOR_STEPS = 32
+SLEEP_CYCLES = 2 * 10 ** 9  # about one second of a 1.98 GHz card
 
 
 def _source(name):
@@ -168,6 +199,59 @@ def ptx_lines(text, where):
             if not ln.lstrip().startswith("//")]
 
 
+def ptx_builds(src_dir, name, where, repeats):
+    """Started compiles of ``src_dir/name`` to PTX, each in its own
+    directory ``where<i>`` beside copies of ``src_dir``'s headers."""
+    procs = []
+    for i in range(repeats):
+        d = Path(f"{where}{i}")
+        shutil.rmtree(d, ignore_errors=True)
+        d.mkdir(parents=True)
+        for f in [*src_dir.glob("*.cuh"), src_dir / name]:
+            shutil.copy(f, d / f.name)
+        procs.append((d, subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(d), "-ptx", "-o",
+             str(d / "k.ptx"), str(d / name)])))
+    return procs
+
+
+def ptx_digests(procs):
+    """The digest of each finished compile's PTX, comment lines dropped."""
+    out = []
+    for d, proc in procs:
+        if proc.wait():
+            raise RuntimeError(f"nvcc -ptx failed in {d}")
+        text = "\n".join(ln for ln in (d / "k.ptx").read_text().splitlines()
+                         if not ln.lstrip().startswith("//"))
+        out.append(hashlib.sha256(text.encode()).hexdigest()[:12])
+    return out
+
+
+def ptx_check(parent, repeats=3):
+    """B5's and B7's sources (with every header) and PTX here against
+    those in ``parent``: ``repeats`` compiles of each side, all at once,
+    in directories of one path length. nvcc's PTX of B7's site kernel is
+    not the same in every compile of one source (its virtual registers
+    are numbered differently), so a side's digests are a set."""
+    same = True
+    for label, name in (("B5 cg_site_kernel", "local_cg_site.cu"),
+                        ("B7 site kernel", "als_sweep_site.cu")):
+        files = sorted(f.name for f in [*_build.CSRC.glob("*.cuh"),
+                                        _build.CSRC / name])
+        src_same = all((_build.CSRC / f).read_bytes()
+                       == (parent / f).read_bytes() for f in files)
+        runs = {who: ptx_builds(d, name, WORK / f"ptx_{who}_", repeats)
+                for who, d in (("c", _build.CSRC), ("p", parent))}
+        got = {who: ptx_digests(procs) for who, procs in runs.items()}
+        overlap = bool(set(got["c"]) & set(got["p"]))
+        same &= src_same and overlap
+        print(f"PTX {label} ({name}): source and headers byte-identical "
+              f"{src_same}; PTX digests current {got['c']}, parent "
+              f"{got['p']}: {'a shared PTX' if overlap else 'DIFFERENT'}",
+              flush=True)
+    return same
+
+
 def sass_check(parent, repeats):
     """Compare B7's current source with ``parent``: their PTX, then the
     per-function SASS digests of ``repeats`` parallel builds of each as
@@ -205,9 +289,12 @@ def sass_check(parent, repeats):
 
 def launcher(lib, entry, L, Ac, Renv, rhs, mask, x0):
     """A function (iters) -> x launching ``entry`` of ``lib`` on batched
-    operands (x0 None: cold)."""
+    operands (x0 None: cold); the cluster entry takes one problem (B = 1)
+    and no scratch."""
     fn = getattr(lib, f"ttnx_{entry}_f32")
-    fn.argtypes, fn.restype = ARGS, ctypes.c_int
+    cluster = entry == "cg_matfree_cluster"
+    fn.argtypes = [P] * 7 + [I] * 5 + [P] if cluster else ARGS
+    fn.restype = ctypes.c_int
     B, R, RA, _ = L.shape
     n = rhs.shape[2]
     V = R * n * R
@@ -215,15 +302,17 @@ def launcher(lib, entry, L, Ac, Renv, rhs, mask, x0):
     scratch = torch.empty(B * per, device=L.device)
     out = torch.empty_like(rhs)
     x0c = rhs if x0 is None else x0
+    ptrs = [L.data_ptr(), Ac.data_ptr(), Renv.data_ptr(), rhs.data_ptr(),
+            mask.data_ptr(), x0c.data_ptr(), out.data_ptr()]
+    sizes = [] if cluster else [scratch.data_ptr(), B]
 
     def run(iters=ITERS):
-        err = fn(L.data_ptr(), Ac.data_ptr(), Renv.data_ptr(), rhs.data_ptr(),
-                 mask.data_ptr(), x0c.data_ptr(), out.data_ptr(),
-                 scratch.data_ptr(), B, R, RA, n, iters, int(x0 is not None),
+        err = fn(*ptrs, *sizes, R, RA, n, iters, int(x0 is not None),
                  torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"{entry}: CUDA error {err}")
         return out
+    run.keep = (scratch, x0c)  # alive as long as the launcher
     return run
 
 
@@ -279,9 +368,10 @@ def split(name, run, label, reps):
 def paths(dev):
     """The CN step at r32 and r64 (ms/step: median of 3 chains of 8 steps)
     and the explicit batched route at B = BATCH (ms/call: median of 3
-    calls) through the kernels, with B4/B5's route forced to "streamed"
-    (a measurement-only patch of ``matfree_route``) and as chosen
-    ("resident"), interleaved: streamed, resident, resident, streamed."""
+    calls) through the kernels, with B4/B5's route as chosen ("cluster" for
+    B4, "resident" for B5) and forced to the route before it ("resident"
+    for B4, "streamed" for B5: a measurement-only patch of
+    ``matfree_route``), interleaved: before, chosen, chosen, before."""
     from ttnx_torch.entry import batched_als_problem
     from ttnx_torch.kernels import local_cg_mf
     from ttnx_torch.solvers.als_scan_batched import als_sweeps_b
@@ -291,26 +381,131 @@ def paths(dev):
     for rmax in (32, 64):
         step_fn, us, _ = chip_smoke.setup(rmax, dev)
         cases.append((f"cn_step d={chip_smoke.D} r{rmax} ms/step",
-                      local_cg_mf.cg_matfree_fused,
+                      local_cg_mf.cg_matfree_fused, "resident", "cluster",
                       lambda f=step_fn, u=us: chip_smoke.timed_chain(f, u)[0]))
     p = batched_als_problem(dev, batch=chip_smoke.BATCH, rmax=64,
                             d=chip_smoke.D, h=chip_smoke.H_STEP)
     cases.append((f"explicit_kernel B={chip_smoke.BATCH} ms/call",
-                  local_cg_mf.cg_matfree_fused_batched,
+                  local_cg_mf.cg_matfree_fused_batched, "streamed",
+                  "resident",
                   lambda: 1e3 * chip_smoke.timed_calls(lambda: als_sweeps_b(
                       p["lhs_stack"], p["b_batch"], p["x_batch"], p["masks"],
                       2, cg_iters=ITERS, solver="cg_fused"))[0]))
     try:
-        for label, wrapper, fn in cases:
-            for route in ("streamed", "resident", "resident", "streamed"):
-                local_cg_mf.matfree_route = chosen if route == "resident" \
-                    else (lambda *shape: "streamed")
+        for label, wrapper, before, route_now, fn in cases:
+            for route in (before, route_now, route_now, before):
+                local_cg_mf.matfree_route = chosen if route == route_now \
+                    else (lambda *shape, r=before, **kw: r)
                 ms = fn()
                 assert wrapper.route == route
                 print(f"path {label} B4/B5 route {route}: {ms:.3f}",
                       flush=True)
     finally:
         local_cg_mf.matfree_route = chosen
+
+
+def cell_session(name, seed, dev):
+    """Cell ``name``'s driver session on ``seed``'s draws, warmed up."""
+    from portbench.core.catalog import Catalog
+    from portbench.core.traffic import draw
+
+    cat = Catalog()
+    cell = cat.cell(name)
+    traffic = cat.data("traffic", cell["traffic"])
+    session = cat.module("drivers", cell["config"]).setup(
+        cat.data("configs", cell["config"]), traffic, draw(traffic, seed),
+        dev)
+    session.warmup()
+    torch.cuda.synchronize()
+    return session
+
+
+def warm_start(L, Ac, Renv, rhs, mask, *, x0=None, iters=32):
+    """B4 that costs nothing (measurement only): its warm start."""
+    return torch.zeros_like(rhs) if x0 is None else x0
+
+
+def step_ms(session, first, steps=FLOOR_STEPS):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(first, first + steps):
+        session.run(i, False)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def host_issue(session, step):
+    """Host ms between consecutive local solves of one ``als_sweeps`` call
+    of the CN step, issued behind a sleep that holds the card; returns the
+    intervals, the host's ms for the call and the sleep's ms alone."""
+    from ttnx_torch.solvers import als_scan, round_scan
+
+    seen, stamps = [], []
+    real_sweeps, real_solve = round_scan.als_sweeps, als_scan._local_solve_padded
+    round_scan.als_sweeps = lambda *a, **k: (seen.append((a, k)),
+                                             real_sweeps(*a, **k))[1]
+    try:
+        session.run(step, False)
+    finally:
+        round_scan.als_sweeps = real_sweeps
+    args, kw = seen[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(SLEEP_CYCLES)
+    torch.cuda.synchronize()
+    sleep = 1e3 * (time.perf_counter() - t0)
+    als_scan._local_solve_padded = lambda *a, **k: (
+        stamps.append(time.perf_counter()), real_solve(*a, **k))[1]
+    try:
+        for held in (False, True):  # the first call warms the host path
+            torch.cuda.synchronize()
+            stamps.clear()
+            if held:
+                torch.cuda._sleep(SLEEP_CYCLES)
+            t0 = time.perf_counter()
+            als_scan.als_sweeps(*args, **kw)
+            host = 1e3 * (time.perf_counter() - t0)
+            torch.cuda.synchronize()
+    finally:
+        als_scan._local_solve_padded = real_solve
+    gaps = [1e3 * (b - a) for a, b in zip(stamps, stamps[1:])]
+    return gaps, host, sleep
+
+
+def floor(dev, seed):
+    """Step 0 of a faster B4: the CN cells' step with B4 as chosen and with
+    B4 stubbed to its warm start, and the host's issue time of a site."""
+    from ttnx_torch.kernels.local_cg_mf import cg_matfree_fused
+    from ttnx_torch.solvers import als_scan
+
+    for name in CN_CELLS:
+        t0 = time.perf_counter()
+        session = cell_session(name, seed, dev)
+        print(f"floor {name}: set-up {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        first, got = 0, {"chosen": [], "stub": []}
+        for kind in ("chosen", "stub", "stub", "chosen"):
+            als_scan.cg_matfree_fused = cg_matfree_fused if kind == \
+                "chosen" else warm_start
+            try:
+                step_ms(session, first, 4)  # a new trajectory, warm
+                got[kind].append(step_ms(session, first + 4))
+            finally:
+                als_scan.cg_matfree_fused = cg_matfree_fused
+            first += FLOOR_STEPS + 4
+            print(f"floor {name} B4 {kind}: {got[kind][-1]:.3f} ms/step",
+                  flush=True)
+        ratio = statistics.mean(got["stub"]) / statistics.mean(got["chosen"])
+        print(f"floor {name}: stub / chosen {ratio:.3f} (B4 route "
+              f"{cg_matfree_fused.route})", flush=True)
+        gaps, host, sleep = host_issue(session, first)
+        inner = sorted(gaps)
+        print(f"host issue {name}: {len(gaps) + 1} local solves issued in "
+              f"{host:.2f} ms behind a {sleep:.1f} ms sleep; ms between "
+              f"solves: median {statistics.median(inner):.3f}, min "
+              f"{inner[0]:.3f}, max {inner[-1]:.3f}; first "
+              f"{[round(g, 3) for g in gaps[:6]]}", flush=True)
+        session.close()
 
 
 def main() -> int:
@@ -323,6 +518,14 @@ def main() -> int:
                     help="builds of each B7 source for --b7-parent")
     ap.add_argument("--paths", action="store_true",
                     help="only the CN and explicit paths by B4/B5 route")
+    ap.add_argument("--ptx-parent", type=Path, metavar="DIR",
+                    help="only compare B5's and B7's PTX with an earlier "
+                         "csrc directory")
+    ap.add_argument("--floor", action="store_true",
+                    help="only the CN cells' step with B4 stubbed, and the "
+                         "host's issue time of an ALS site")
+    ap.add_argument("--seed", type=int, default=3141592653,
+                    help="the cells' draws for --floor")
     opt = ap.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -332,6 +535,11 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True).stdout.strip(), flush=True)
     dev = torch.device("cuda", 0)
+    if opt.ptx_parent:
+        return 0 if ptx_check(opt.ptx_parent) else 1
+    if opt.floor:
+        floor(dev, opt.seed)
+        return 0
     if opt.paths:
         paths(dev)
         return 0
@@ -342,33 +550,39 @@ def main() -> int:
     libs = build(sources)
     names = [n for n, (_, entry, _) in VARIANTS.items()
              if entry and n in libs]
+    wrong = []
     for label, args in inputs(dev).items():
         B = args[0].shape[0]
         reps = 1 if B > 64 else 5
         runs = {n: launcher(libs[n][0], VARIANTS[n][1], *args)
-                for n in names}
+                for n in names
+                if B == 1 or VARIANTS[n][1] != "cg_matfree_cluster"}
         ref = cg_matfree_batched_plain(*args[:5], x0=args[5], iters=ITERS)
-        for n in names:
-            got = runs[n]()
+        for n in runs:
+            got = runs[n]().clone()
+            again = runs[n]()
             torch.cuda.synchronize()
             err = float((got - ref).abs().max() / ref.abs().max())
             gate = not n.endswith(MEASUREMENT_ONLY)
             print(f"check {n} {label}: max rel err against plain {err:.3e}"
-                  f"{' (<= 1e-4)' if gate else ''}", flush=True)
+                  f"{' (<= 1e-4)' if gate else ''}; two launches "
+                  f"bit-identical {torch.equal(got, again)}", flush=True)
             if gate and not err <= 1e-4:
-                raise RuntimeError(f"{n} is wrong on {label}")
-        for n in names:
+                wrong.append(f"{n} on {label}")
+        for n in runs:
             if not opt.step0 or n == "streamed (PR 1)":
                 split(n, runs[n], label, reps)
         if opt.step0:
             continue
-        order = names + names[::-1]
+        order = list(runs) + list(runs)[::-1]
         for n in order:
             ms = cuda_ms(runs[n], reps)
             print(f"time {label} {n}: {ms:.4f} ms", flush=True)
         plain = cuda_ms(lambda: cg_matfree_batched_plain(
             *args[:5], x0=args[5], iters=ITERS), reps)
         print(f"time {label} plain: {plain:.4f} ms", flush=True)
+    if wrong:
+        raise RuntimeError(f"wrong against plain: {wrong}")
     if not opt.step0:
         paths(dev)
     return 0

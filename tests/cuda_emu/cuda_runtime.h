@@ -3,7 +3,8 @@
 // local_cg_site.cu and their site_engine.cuh) under
 // tests/cuda_emu/emulate_site.cpp and emulate_matfree.cpp, and the
 // cluster routes of B10 and B3 (local_cg.cu with dense_cluster.cuh)
-// under emulate_cluster.cpp, of B9 (lanczos.cu) under emulate_lanczos.cpp,
+// under emulate_cluster.cpp, of B4 (local_cg_cluster.cu) under
+// emulate_matfree_cluster.cpp, of B9 (lanczos.cu) under emulate_lanczos.cpp,
 // every route of env_chain_site.cu (B6, B2 and B8) under emulate_env.cpp,
 // B1's cooperative grid route (gram_chain_grid.cu) under
 // emulate_gram.cpp, and the batched gauge QR (qr_batched.cu) under

@@ -124,7 +124,7 @@ def test_packing_keeps_1d_at_4_and_brings_2d_from_5_to_4():
         assert c["RA"] == 4
         assert c["lhs_stack"].shape == c["rhs_stack"].shape == (d, 4, 2, 2, 4)
         assert list(round_op(side(A, d, h, 1)).ranks) == rounded
-        assert fast_routes(c["RA"], d) == ("resident", "cluster", "grid")
+        assert fast_routes(c["RA"], d) == ("cluster", "cluster", "grid")
         # the applied chain's active rows follow the rounded ranks
         assert c["masks_big"].sum(1).tolist() == [
             a * r for a, r in zip(rounded, c["u_rks"])]
@@ -197,7 +197,7 @@ def test_cn_step_takes_the_fast_routes_on_the_card(cuda, counts, case):
     torch.cuda.synchronize()
     assert bool(torch.isfinite(out).all())
     routes = {k: v for k, v in dispatch.route_counts().items() if v}
-    assert routes == {"cg_matfree_fused": {"resident": 2 * (d - 1)},
+    assert routes == {"cg_matfree_fused": {"cluster": 2 * (d - 1)},
                       "right_env_chain_fused": {"cluster": 1},
                       "left_env_chain_fused": {"cluster": 1},
                       "gram_chain_fused": {"grid": 1}}

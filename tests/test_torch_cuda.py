@@ -27,8 +27,10 @@ L2; two launches bit-identical; B9's breakdown) and ``l2`` (f64, B3 at M
 = 673, B9 at M = 1100). B7 is held on both of its routes:
 ``site`` (f32 at R = 64 and 32, with and without the polish stage) and
 ``folded`` (f64, the ragged R = 40 stack and the bf16 refine stage). B4
-and B5 likewise: ``resident`` (f32 at R = 64 and 32, warm and cold, a
-rank mask and a scattered one) and ``streamed`` (f64, R = 20 and 40).
+on ``cluster`` and B5 on ``resident`` (f32 at R = 64 and 32, warm and
+cold, a rank mask and a scattered one; B4's cluster also against B5 on the
+same problem, two launches bit-identical), both on ``streamed`` (f64, R =
+20 and 40).
 B1 on both of its routes: ``grid`` (f32 at RB = 64, 128, 256, one
 cooperative launch; two launches bit-identical) and ``staged`` (f64 at
 those RB, f32 at RB = 96 and the ragged shapes). B8 likewise: ``cluster``
@@ -57,6 +59,7 @@ from ttnx_torch.entry import (als_eig_problem, batched_als_problem,
                               dense_xxx_groundstate, flat_spectrum_stack,
                               mals_problem, norm_keeping_contraction_problem,
                               norm_keeping_matmul_problem)
+from ttnx_torch.kernels import dispatch
 from ttnx_torch.kernels.contraction import (chain_route, matmul_chain,
                                             matmul_chain_plain,
                                             matmul_chain_route, merge_route,
@@ -303,9 +306,9 @@ def test_cg_matfree_batched_kernel(cuda, dtype, warm):
 @pytest.mark.parametrize("scattered", [False, True],
                          ids=["rank-mask", "scattered-mask"])
 def test_cg_matfree_resident_route(cuda, R, B, warm, scattered):
-    """B4 (B = 1) and B5 (B = 3) on the resident route (f32 at (R, 2, 4))
-    against their plain versions, with the solvers' kind of mask and with
-    a scattered 0/1 mask that is no outer product."""
+    """B4 (B = 1, route cluster) and B5 (B = 3, route resident) in f32 at
+    (R, 2, 4) against their plain versions, with the solvers' kind of mask
+    and with a scattered 0/1 mask that is no outer product."""
     rng = np.random.default_rng(R + B)
     local = [_local(rng, R, 4) for _ in range(B)]
     mask = local[0][4]
@@ -314,7 +317,8 @@ def test_cg_matfree_resident_route(cuda, R, B, warm, scattered):
     L, Renv, rhs, x0 = (np.stack([p[k] for p in local]) for k in (0, 2, 3, 5))
     L, Ac, Renv, rhs, mask, x0 = _on(cuda, torch.float32, L, local[0][1],
                                      Renv, rhs, mask, x0)
-    assert matfree_route(torch.float32, R, 2, 4) == "resident"
+    route = "cluster" if B == 1 else "resident"
+    assert matfree_route(torch.float32, R, 2, 4, batched=B > 1) == route
     kw = dict(x0=x0 if warm else None, iters=16)
     if B == 1:
         kw["x0"] = None if kw["x0"] is None else kw["x0"][0]
@@ -328,8 +332,42 @@ def test_cg_matfree_resident_route(cuda, R, B, warm, scattered):
     got = wrapper(*args, **kw)
     torch.cuda.synchronize()
     assert wrapper.launches == before + 1
-    assert wrapper.route == "resident"
+    assert wrapper.route == route
     _close(got, plain(*args, **kw), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R", [64, 32])
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+@pytest.mark.parametrize("scattered", [False, True],
+                         ids=["rank-mask", "scattered-mask"])
+def test_cg_matfree_cluster_route(cuda, R, warm, scattered):
+    """B4 on route cluster in f32 at (R, 2, 4): one launch filed under
+    ``cluster`` in ``route_counts()``, within 1e-4 of its plain version and
+    of B5 (route resident) on the same problem as a batch of one, two
+    launches bit-identical."""
+    rng = np.random.default_rng(3 * R + 2 * warm + scattered)
+    L, Ac, Renv, rhs, mask, x0 = _local(rng, R, 4)
+    if scattered:
+        mask = (rng.random(mask.shape) < 0.8).astype(float)
+    L, Ac, Renv, rhs, mask, x0 = _on(cuda, torch.float32, L, Ac, Renv, rhs,
+                                     mask, x0)
+    kw = dict(x0=x0 if warm else None, iters=16)
+    dispatch.reset_launch_counts()
+    got = cg_matfree_fused(L, Ac, Renv, rhs, mask, **kw)
+    again = cg_matfree_fused(L, Ac, Renv, rhs, mask, **kw)
+    torch.cuda.synchronize()
+    assert cg_matfree_fused.route == "cluster"
+    assert dispatch.launch_counts()["cg_matfree_fused"] == 2
+    assert dispatch.route_counts()["cg_matfree_fused"] == {"cluster": 2}
+    assert torch.equal(got, again)
+    _close(got, cg_matfree_plain(L, Ac, Renv, rhs, mask, **kw), 1e-4)
+    one = cg_matfree_fused_batched(
+        L[None], Ac, Renv[None], rhs[None], mask,
+        x0=x0[None] if warm else None, iters=16)
+    torch.cuda.synchronize()
+    assert cg_matfree_fused_batched.route == "resident"
+    _close(got, one[0], 1e-4)
 
 
 @pytest.mark.cuda

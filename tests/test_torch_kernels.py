@@ -291,8 +291,8 @@ def test_cpu_tensor_takes_plain_version(case):
 
 
 @pytest.mark.parametrize("dtype,R,n,RA,route", [
-    (torch.float32, 64, 2, 4, "resident"),
-    (torch.float32, 32, 2, 4, "resident"),
+    (torch.float32, 64, 2, 4, "cluster"),
+    (torch.float32, 32, 2, 4, "cluster"),
     (torch.float64, 64, 2, 4, "streamed"),
     (torch.float64, 32, 2, 4, "streamed"),
     (torch.float32, 20, 2, 4, "streamed"),
@@ -302,8 +302,12 @@ def test_cpu_tensor_takes_plain_version(case):
     (torch.float32, 64, 3, 4, "streamed"),
 ])
 def test_matfree_route_by_dtype_and_shape(dtype, R, n, RA, route):
-    """B4/B5's kernel is chosen from dtype and (R, n, RA) alone."""
+    """B4/B5's kernel is chosen from dtype, (R, n, RA) and whether the
+    wrapper holds one problem (B4, ``route``) or a batch (B5: ``resident``
+    where B4 takes ``cluster``)."""
     assert matfree_route(dtype, R, n, RA) == route
+    assert matfree_route(dtype, R, n, RA, batched=True) == (
+        "resident" if route == "cluster" else route)
 
 
 @pytest.mark.parametrize("batched", [False, True], ids=["B4", "B5"])
@@ -319,8 +323,8 @@ def test_cpu_tensors_at_resident_shape_take_plain(batched):
         for k in (0, 2, 3):
             args[k] = torch.stack([args[k], 2.0 * args[k]])
         x0 = torch.stack([x0, -x0])
-    assert matfree_route(torch.float32, 32, 2, args[1].shape[0]) == \
-        "resident"
+    assert matfree_route(torch.float32, 32, 2, args[1].shape[0],
+                         batched) == ("resident" if batched else "cluster")
     route, before = wrapper.route, wrapper.launches
     assert torch.equal(wrapper(*args, x0=x0, iters=3),
                        plain(*args, x0=x0, iters=3))

@@ -15,8 +15,8 @@ entry point takes ``c_void_p`` for pointers and the stream, ``c_int`` for
 sizes (``c_longlong`` for an element stride), and returns ``cudaGetLastError()`` after its launches. Each entry
 point exists for the dtype suffixes its signature lists: ``f32`` and
 ``f64`` for the linear-algebra kernels, ``f32`` alone for the
-site-resident routes of B7, B4/B5 and B6, the cluster routes of B2,
-B3, B8, B9 and B10 and the grid route of B1,
+site-resident routes of B7, B5 and B6, the cluster routes of B2,
+B3, B4, B8, B9 and B10 and the grid route of B1,
 ``bf16`` and ``f32`` for the contraction kernels, ``bf16`` alone for
 their tensor-core routes. ``ttnx_qr_batched_f32`` and ``_f64``
 (``csrc/qr_batched.cu``) are the batched ALS's gauge QR, which replaces
@@ -76,6 +76,10 @@ _SIGNATURES = {
     # the same arguments; (R, n, RA) = (64, 2, 4) or (32, 2, 4)
     "cg_matfree_site": ([P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
                         ("f32",)),
+    # L, Ac, Renv, rhs, mask, x0, out, R, RA, n, iters, warm, stream; one
+    # problem, (R, n, RA) = (64, 2, 4) or (32, 2, 4)
+    "cg_matfree_cluster": ([P, P, P, P, P, P, P, I, I, I, I, I, P],
+                           ("f32",)),
     # x, A, b, envs, envs_b, scratch, B, d, R, RA, n, Rb, left, raw, stream
     "env_chain_batched": ([P, P, P, P, P, P, I, I, I, I, I, I, I, I, P],
                           REAL),

@@ -15,14 +15,19 @@ computes).
 grid of B blocks, with a shared MPO core and mask and one set of CG
 scalars per problem; :func:`cg_matfree_batched_plain` is its plain version
 (and, with its conjugating dot, the batched einsum ``'cg'`` path for
-complex dtypes too). B4 is the same kernel on a grid of one.
+complex dtypes too).
 
-The kernel is chosen by dtype and shape alone, before the launch and never
-on a failure (:func:`matfree_route`); each wrapper keeps the route of its
-last launch in its ``route`` attribute:
+The kernel is chosen by dtype, shape and whether the wrapper holds one
+problem or a batch, before the launch and never on a failure
+(:func:`matfree_route`); each wrapper keeps the route of its last launch
+in its ``route`` attribute:
 
-* ``"resident"`` -- ``csrc/local_cg_site.cu``: float32 at ``(R, n, RA)``
-  in :data:`RESIDENT_SHAPES`; L and Renv stay in shared memory for the
+* ``"cluster"`` -- ``csrc/local_cg_cluster.cu``: B4 (one problem) in
+  float32 at ``(R, n, RA)`` in :data:`RESIDENT_SHAPES`, on one
+  thread-block cluster of ``R / 4`` CTAs, each owning four columns of the
+  solution with L and its columns of Renv in shared memory.
+* ``"resident"`` -- ``csrc/local_cg_site.cu``: B5 (a batch) at those
+  shapes, one block a problem; L and Renv stay in shared memory for the
   whole solve, the apply runs on B7's site engine.
 * ``"streamed"`` -- ``csrc/local_cg_mf.cu`` (operands streamed from L2
   every apply): float64 and every other shape.
@@ -42,22 +47,26 @@ __all__ = ["cg_matfree_fused", "cg_matfree_plain", "apply_local_op",
            "cg_matfree_fused_batched", "cg_matfree_batched_plain",
            "matfree_route", "RESIDENT_SHAPES"]
 
-# (R, n, RA) the resident kernel is instantiated for: the CN step's and the
-# batched bench's rank-64 heat problem and the rank-32 CN step
+# (R, n, RA) the cluster and resident kernels are instantiated for: the CN
+# step's and the batched bench's rank-64 heat problem and the rank-32 CN
+# step
 RESIDENT_SHAPES = ((64, 2, 4), (32, 2, 4))
 
 
-def matfree_route(dtype, R: int, n: int, RA: int) -> str:
-    """The kernel of B4 and B5: ``"resident"`` for float32 at an
-    instantiated shape, else ``"streamed"``."""
+def matfree_route(dtype, R: int, n: int, RA: int, batched: bool = False
+                  ) -> str:
+    """The kernel of B4 (one problem) and B5 (``batched``): for float32 at
+    an instantiated shape ``"cluster"`` for one problem, whose solve alone
+    would hold one SM, and ``"resident"`` for a batch, whose blocks fill
+    the card; else ``"streamed"``."""
     if dtype == torch.float32 and (R, n, RA) in RESIDENT_SHAPES:
-        return "resident"
+        return "resident" if batched else "cluster"
     return "streamed"
 
 
 def _launch(L, Ac, Renv, rhs, mask, x0, iters: int, batched: bool):
     """Launch B5 (``batched``) or B4 on checked operands; returns ``(x,
-    route)``. B4's resident route is B5's kernel on a grid of one."""
+    route)``."""
     L, Ac, Renv = L.contiguous(), Ac.contiguous(), Renv.contiguous()
     rhs, mask = rhs.contiguous(), mask.contiguous()
     x0c = rhs if x0 is None else x0.contiguous()  # unread when cold
@@ -65,21 +74,25 @@ def _launch(L, Ac, Renv, rhs, mask, x0, iters: int, batched: bool):
     B = L.shape[0] if batched else 1
     R, RA = L.shape[-3], L.shape[-2]
     n = rhs.shape[-2]
-    route = matfree_route(rhs.dtype, R, n, RA)
-    V = R * n * R
-    per_problem = 3 * V if route == "resident" else 3 * V + 2 * RA * V
-    scratch = torch.empty(B * per_problem, dtype=rhs.dtype,
-                          device=rhs.device)
-    if route == "resident":
-        entry, sizes = "cg_matfree_site", (B,)
-    elif batched:
-        entry, sizes = "cg_matfree_batched", (B,)
+    route = matfree_route(rhs.dtype, R, n, RA, batched)
+    ptrs = [L.data_ptr(), Ac.data_ptr(), Renv.data_ptr(), rhs.data_ptr(),
+            mask.data_ptr(), x0c.data_ptr(), out.data_ptr()]
+    if route == "cluster":  # the iterates live on the chip: no scratch
+        entry, sizes = "cg_matfree_cluster", ()
     else:
-        entry, sizes = "cg_matfree", ()
-    _build.call(entry, rhs.dtype, L.data_ptr(), Ac.data_ptr(),
-                Renv.data_ptr(), rhs.data_ptr(), mask.data_ptr(),
-                x0c.data_ptr(), out.data_ptr(), scratch.data_ptr(), *sizes,
-                R, RA, n, int(iters), int(x0 is not None))
+        V = R * n * R
+        per_problem = 3 * V if route == "resident" else 3 * V + 2 * RA * V
+        scratch = torch.empty(B * per_problem, dtype=rhs.dtype,
+                              device=rhs.device)
+        ptrs.append(scratch.data_ptr())
+        if route == "resident":
+            entry, sizes = "cg_matfree_site", (B,)
+        elif batched:
+            entry, sizes = "cg_matfree_batched", (B,)
+        else:
+            entry, sizes = "cg_matfree", ()
+    _build.call(entry, rhs.dtype, *ptrs, *sizes, R, RA, n, int(iters),
+                int(x0 is not None))
     return out, route
 
 
