@@ -710,6 +710,7 @@ def b4_by_route(rmax, row, args, kwargs):
     """B4 on route cluster against route resident (B5's kernel on a batch
     of one) on the same inputs: max relative difference and CUDA-event
     times interleaved, beside the bound of ``row`` (the hold's)."""
+    from ttnx_torch.kernels.dispatch import route_counts
     from ttnx_torch.kernels.local_cg_mf import (cg_matfree_fused,
                                                 cg_matfree_fused_batched)
 
@@ -719,12 +720,13 @@ def b4_by_route(rmax, row, args, kwargs):
     runs = {"cluster": lambda: cg_matfree_fused(*args, **kwargs),
             "resident": lambda: cg_matfree_fused_batched(
                 L[None], Ac, Renv[None], rhs[None], mask, **one)[0]}
+    before = route_counts()
     got = {route: run() for route, run in runs.items()}
     torch.cuda.synchronize()
-    if (cg_matfree_fused.route, cg_matfree_fused_batched.route) != (
-            "cluster", "resident"):
-        raise RuntimeError(f"B4 r{rmax}: routes {cg_matfree_fused.route}, "
-                           f"{cg_matfree_fused_batched.route}")
+    taken = (routes_of("cg_matfree_fused", before),
+             routes_of("cg_matfree_fused_batched", before))
+    if taken != ({"cluster": 1}, {"resident": 1}):
+        raise RuntimeError(f"B4 r{rmax}: routes {taken[0]}, {taken[1]}")
     _, rel = max_err(got["cluster"], got["resident"])
     ms = {route: [] for route in runs}
     for route in ("cluster", "resident", "resident", "cluster"):
@@ -1026,7 +1028,7 @@ def phase_batched_path(device):
     counts of each route's first call."""
     from ttnx_torch.core.decomp import ttv_to_tensor
     from ttnx_torch.entry import batched_als_problem
-    from ttnx_torch.kernels import als_sweep_fused, local_cg_mf
+    from ttnx_torch.kernels import als_sweep_fused
     from ttnx_torch.kernels.dispatch import launch_counts, reset_launch_counts
     from ttnx_torch.solvers.als_scan import unpack_tt
     from ttnx_torch.solvers.als_scan_batched import als_sweeps_b
@@ -1059,7 +1061,9 @@ def phase_batched_path(device):
         run()
         torch.cuda.synchronize()
         counts = launch_counts()
+        b5 = routes_of("cg_matfree_fused_batched")
         b6 = routes_of("env_chain_fused_batched")
+        b7 = routes_of("als_fwd_bwd_fused_batched")
         if route == "explicit_kernel" and b6 != {"resident": 2}:
             raise RuntimeError(f"{route}: B6 took routes {b6}, not both "
                                f"resident")
@@ -1068,9 +1072,9 @@ def phase_batched_path(device):
             raise RuntimeError(f"{route}: launches per call {counts}, "
                                f"expected {want}")
         route_counts[route] = counts
-        b5 = local_cg_mf.cg_matfree_fused_batched.route
-        if route == "explicit_kernel" and b5 != "resident":
-            raise RuntimeError(f"{route}: B5 took route {b5}, not resident")
+        if route == "explicit_kernel" and b5 != {"resident": 2 * (D - 1)}:
+            raise RuntimeError(f"{route}: B5 took routes {b5}, not all "
+                               f"resident")
         sec, out = timed_calls(run)
         with plain_versions():
             plain_sec, plain_out = timed_calls(run)
@@ -1085,14 +1089,13 @@ def phase_batched_path(device):
                       / np.linalg.norm(x0))
         gflops = BATCH * als_sweeps_flops(D, 64, A.shape[1], 64,
                                           cg_iters=applies) / sec / 1e9
-        kernel = (f" | B5 route {b5}, B6 routes {b6}"
+        kernel = (f" | B5 routes {b5}, B6 routes {b6}"
                   if route == "explicit_kernel" else "")
         if route == "sweep_pair_fused":
             name = "als_fwd_bwd_fused_batched"
             bound_ms, by = bound(dict(work=work(name, (A, bb, xb, masks), {},
                                                 out)))
-            b7 = als_sweep_fused.als_fwd_bwd_fused_batched.route
-            kernel = (f" | B7 route {b7}: {bound_ms / (sec * 1e3):.3f} of "
+            kernel = (f" | B7 routes {b7}: {bound_ms / (sec * 1e3):.3f} of "
                       f"its {by} bound {bound_ms:.3f} ms")
         log(f"batched {route} d={D} r64 B={BATCH} f32: {BATCH / sec:.2f} "
             f"solves/s ({gflops:.2f} GFLOP/s, {sec * 1e3:.1f} ms/call)"
@@ -1484,14 +1487,17 @@ def norm_keeping_matmul_hold(device):
 
 def deterministic(name, args, kwargs):
     """Two launches of a kernel on the same inputs give the same bits."""
+    from ttnx_torch.kernels.dispatch import route_counts
+
     kernel = wrappers()[name][0]
+    before = route_counts()
     first, again = kernel(*args, **kwargs), kernel(*args, **kwargs)
     torch.cuda.synchronize()
     if torch.is_tensor(first):
         first, again = (first,), (again,)
     same = all(torch.equal(f, a) for f, a in zip(first, again))
-    log(f"kernel {KERNELS[name][0]} {name} route {kernel.route}: two "
-        f"launches bit-identical {same}")
+    log(f"kernel {KERNELS[name][0]} {name} routes "
+        f"{routes_of(name, before)}: two launches bit-identical {same}")
     if not same:
         raise RuntimeError(f"{name}: two launches differ")
 
@@ -1645,6 +1651,7 @@ def phase_gram_envA_routes(device):
     then the device time of a CN r64 step and of a DMRG d = 12 sweep with
     the B1/B8 route forced each way (torch.profiler)."""
     from ttnx_torch.entry import dmrg_problem
+    from ttnx_torch.kernels.dispatch import route_counts
 
     cases = []
     for rmax in RANKS:
@@ -1665,8 +1672,9 @@ def phase_gram_envA_routes(device):
         times, taken = [], []
         for route in ("new", "staged", "staged", "new"):
             with forced_gram_envA_route(route):
+                before = route_counts()
                 times.append(cuda_ms(lambda: kernel(*args, **kwargs), 10, 3))
-                taken.append(kernel.route)
+                taken.append("/".join(routes_of(name, before)))
         log(f"interleaved {label} ({', '.join(taken)}): "
             f"{', '.join(f'{t:.4f}' for t in times)} ms")
         if taken[0] == "staged" or min(times[0], times[3]) >= min(times[1:3]):
@@ -1714,9 +1722,10 @@ def phase_convection_path(device):
     if per_step != want:
         raise RuntimeError(f"convection: launches per step {per_step}, "
                            f"expected {want}")
-    b10 = wrappers()["bicgstab_solve_fused"][0].route
-    if b10 != "cluster":
-        raise RuntimeError(f"convection: B10 took route {b10}, not cluster")
+    b10 = routes_of("bicgstab_solve_fused")
+    if b10 != {"cluster": 2 * (D - 1)}:
+        raise RuntimeError(f"convection: B10 took routes {b10}, not all "
+                           f"cluster")
     if b1 != {"grid": 1}:
         raise RuntimeError(f"convection: B1 took routes {b1}, not grid")
     if b2 != [{"cluster": 1}] * 2:
@@ -1829,9 +1838,9 @@ def phase_contraction_path(device):
     if counts != want:
         raise RuntimeError(f"contraction: launches {counts}, expected {want}")
     for name in ("merge_resplit_chain", "matmul_chain"):
-        if wrappers()[name][0].route != "wgmma":
-            raise RuntimeError(f"contraction: {name} took route "
-                               f"{wrappers()[name][0].route}, not wgmma")
+        if routes_of(name) != {"wgmma": 1}:
+            raise RuntimeError(f"contraction: {name} took routes "
+                               f"{routes_of(name)}, not wgmma")
     rows = []
     for name, (run, args, kw, flops) in runs.items():
         out = outs[name]
@@ -2653,20 +2662,23 @@ def dist_cn_step(A, mesh, force_tp):
 
 def dist_step_run(step, us, unpack):
     """One step for its launch counts, then :func:`timed_chain`; returns
-    the launches of that step, of the whole run, ms/step and the dense
-    states after 7 and 8 steps."""
-    from ttnx_torch.kernels.dispatch import launch_counts, reset_launch_counts
+    the launches of that step (by wrapper and by route), of the whole run,
+    ms/step and the dense states after 7 and 8 steps."""
+    from ttnx_torch.kernels.dispatch import (launch_counts,
+                                             reset_launch_counts,
+                                             route_counts)
 
     reset_launch_counts()
     one = step(us)
     torch.cuda.synchronize()
     per_step = {k: v for k, v in launch_counts().items() if v}
+    routes = {k: v for k, v in route_counts().items() if v}
     if one.shape != us.shape or not bool(torch.isfinite(one).all()):
         raise RuntimeError(f"distributed CN step: not a finite "
                            f"{tuple(us.shape)} stack")
     ms, v7, v8 = timed_chain(step, us)
-    return dict(per_step=per_step, launches=launch_counts(), ms=ms,
-                d7=dense(unpack, v7), d8=dense(unpack, v8))
+    return dict(per_step=per_step, routes=routes, launches=launch_counts(),
+                ms=ms, d7=dense(unpack, v7), d8=dense(unpack, v8))
 
 
 def rounding_ms(A, us, mesh, sharded, calls=5):
@@ -2785,7 +2797,6 @@ def dist_nccl(device, smi, exact, hg, total):
     the replicated distributed CN step against ``make_cn_step``."""
     import torch.distributed as dist
 
-    from ttnx_torch.kernels import env_chain, gram, local_cg_mf
     from ttnx_torch.parallel.batch import make_mesh
     from ttnx_torch.parallel.comm import all_gather, psum, psum_scatter, route
     from ttnx_torch.solvers.round_scan import make_cn_step
@@ -2808,15 +2819,11 @@ def dist_nccl(device, smi, exact, hg, total):
     finally:
         dist.destroy_process_group()
     want = dict(DIST_STEP, gram_chain_fused=1)
-    routes = {"B1": gram.gram_chain_fused.route,
-              "B2": {env_chain.right_env_chain_fused.route,
-                     env_chain.left_env_chain_fused.route},
-              "B4": local_cg_mf.cg_matfree_fused.route}
-    if run["per_step"] != want or routes != {"B1": "grid",
-                                             "B2": {"cluster"},
-                                             "B4": "cluster"}:
+    fast = {name: {"grid" if name == "gram_chain_fused" else "cluster": n}
+            for name, n in want.items()}
+    if run["per_step"] != want or run["routes"] != fast:
         raise RuntimeError(f"13a: launches/step {run['per_step']}, expected "
-                           f"{want}; routes {routes}")
+                           f"{want}; routes {run['routes']}")
     add_counts(total, run["launches"])
     ref_step, ref_pack, ref_unpack = make_cn_step(
         A, H_STEP, rmax=DIST_RMAX, dims=(2,) * D,
@@ -2831,8 +2838,8 @@ def dist_nccl(device, smi, exact, hg, total):
         f"rounding alone {run['round_ms']:.3f} ms) | traj rel "
         f"{rel:.3e} (<= 1e-3) residual {res:.3e} (<= 1e-2) | vs "
         f"make_cn_step 8-step rel {agree:.3e} (<= 1e-4) | launches/step "
-        f"{run['per_step']} | kernel routes {routes} | collectives on the "
-        f"mesh: {routes_line(coll.values())} | {smi}")
+        f"{run['per_step']} | kernel routes {run['routes']} | collectives "
+        f"on the mesh: {routes_line(coll.values())} | {smi}")
     if agree > 1e-4:
         raise RuntimeError(f"13a: 8-step state {agree:.3e} from "
                            f"make_cn_step")
@@ -3047,6 +3054,7 @@ def autograd_on_card(device, smi):
     the card against the CPU's in f64; the Adam run's gate; the gradient
     gate of one wrapper of each kernel file on CUDA inputs."""
     from ttnx_torch.entry import als_eig_problem
+    from ttnx_torch.kernels.dispatch import route_counts
 
     cpu = torch.device("cpu")
     p = als_eig_problem(cpu, d=EIG[0], rmax=4, dtype=torch.float64)
@@ -3078,7 +3086,7 @@ def autograd_on_card(device, smi):
                 a[slot] = a[slot].clone().requires_grad_()
             else:
                 kw[slot] = kw[slot].clone().requires_grad_()
-            before = fn.launches
+            before = route_counts()
             try:
                 fn(*a, **kw)
             except RuntimeError as e:
@@ -3087,7 +3095,8 @@ def autograd_on_card(device, smi):
             else:
                 raise RuntimeError(f"14a {name} took a CUDA input that "
                                    f"requires grad")
-            gate(f"14a {name} launched nothing", fn.launches == before)
+            gate(f"14a {name} launched nothing",
+                 not routes_of(fn.__name__, before))
         refused.append(f"{name} ({len(slots)} inputs)")
     log(f"14a the gradient gate refused a CUDA input that requires grad, "
         f"each input in turn, launching nothing: {', '.join(refused)}")

@@ -68,7 +68,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
-from ttnx_torch.kernels import _build  # noqa: E402
+from ttnx_torch.kernels import _build, dispatch  # noqa: E402
 
 WORK = ROOT / "build" / "probe_cg_lanczos"
 SOURCES = ("local_cg.cu", "lanczos.cu")
@@ -524,8 +524,10 @@ def paths(dev):
         for route in order:
             local_cg.cg_route = chosen3 if route == "cluster" else (
                 lambda *shape: "l2")
+            before = dispatch.route_counts()
             ms = chip_smoke.timed_chain(step_fn, us)[0]
-            assert local_cg.cg_solve_fused.route == route
+            assert set(chip_smoke.routes_of("cg_solve_fused",
+                                            before)) == {route}
             got[route].append(ms)
             print(f"path cn_step d={chip_smoke.D} r16 ms/step B3 route "
                   f"{route}: {ms:.3f}", flush=True)
@@ -536,8 +538,10 @@ def paths(dev):
         for route in order:
             lanczos.lanczos_route = chosen9 if route == "cluster" else (
                 lambda *shape: "l2")
+            before = dispatch.route_counts()
             ms = chip_smoke.timed_sweeps(p, "lanczos_fused")[0]
-            assert lanczos.lanczos_fused.route == route
+            assert set(chip_smoke.routes_of("lanczos_fused",
+                                            before)) == {route}
             got[route].append(ms)
             print(f"path dmrg d={d} r{rmax} lanczos_fused ms/sweep B9 route "
                   f"{route}: {ms:.3f}", flush=True)

@@ -54,7 +54,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
-from ttnx_torch.kernels import _build  # noqa: E402
+from ttnx_torch.kernels import _build, dispatch  # noqa: E402
 
 WORK = ROOT / "build" / "probe_chain_bicg"
 SOURCES = ("gram_chain.cu", "env_chain.cu", "local_cg.cu", "contraction.cu")
@@ -394,8 +394,10 @@ def paths(dev):
         for route in ("cluster", "l2", "l2", "cluster"):
             local_cg.bicgstab_route = chosen if route == "cluster" else (
                 lambda *shape: "l2")
+            before = dispatch.route_counts()
             ms = chip_smoke.timed_chain(step_fn, us)[0]
-            assert local_cg.bicgstab_solve_fused.route == route
+            assert set(chip_smoke.routes_of("bicgstab_solve_fused",
+                                            before)) == {route}
             print(f"path convection cn_step d={chip_smoke.D} "
                   f"r{chip_smoke.CONV_RMAX} ms/step B10 route {route}: "
                   f"{ms:.3f}", flush=True)

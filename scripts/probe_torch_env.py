@@ -51,7 +51,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
-from ttnx_torch.kernels import _build  # noqa: E402
+from ttnx_torch.kernels import _build, dispatch  # noqa: E402
 
 WORK = ROOT / "build" / "probe_env"
 SOURCES = ("env_chain.cu", "env_chain_site.cu")
@@ -208,16 +208,14 @@ def staged_call(name, args, kwargs):
 
 
 def step0(dev):
-    from ttnx_torch.kernels import env_chain
-
     for rmax, calls in b2_inputs(dev).items():
         for side, name, (args, kwargs) in calls:
             run = staged_call(name, args, kwargs)
-            n0 = getattr(env_chain, name).launches
+            before = dispatch.route_counts()
             run()
+            taken = chip_smoke.routes_of(name, before)
             print(f"time B2 staged r{rmax}{side}: {cuda_ms(run, 10):.4f} ms "
-                  f"(route {getattr(getattr(env_chain, name), 'route', None)}, "
-                  f"{getattr(env_chain, name).launches - n0} wrapper launch)",
+                  f"(routes {taken}, {sum(taken.values())} wrapper launch)",
                   flush=True)
             split_phases(f"B2 staged r{rmax}{side}", run, args[0].shape[0])
     for side, (args, kwargs) in b6_inputs(dev):
@@ -259,8 +257,9 @@ def held(name, args, kwargs, route):
     """(output, route taken, max rel err against plain, bit-identical)."""
     kernel, plain = chip_smoke.wrappers()[name]
     with forced(route):
+        before = dispatch.route_counts()
         got = kernel(*args, **kwargs)
-        taken = kernel.route
+        taken = "/".join(chip_smoke.routes_of(name, before))
         again = kernel(*args, **kwargs)
     ref = plain(*args, **kwargs)
     torch.cuda.synchronize()

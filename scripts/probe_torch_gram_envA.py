@@ -51,7 +51,7 @@ sys.path.insert(0, str(ROOT / "scripts"))
 
 import chip_smoke  # noqa: E402
 import probe_torch_env as penv  # noqa: E402
-from ttnx_torch.kernels import _build  # noqa: E402
+from ttnx_torch.kernels import _build, dispatch  # noqa: E402
 
 WORK = ROOT / "build" / "probe_gram_envA"
 STAGED = ("gram_chain.cu", "env_chain.cu")
@@ -247,8 +247,9 @@ def check_and_time(all_cases):
         kernel, plain = chip_smoke.wrappers()[name]
         for route in ("new", "staged"):
             with chip_smoke.forced_gram_envA_route(route):
+                before = dispatch.route_counts()
                 got, again = kernel(*args, **kwargs), kernel(*args, **kwargs)
-                taken = kernel.route
+                taken = "/".join(chip_smoke.routes_of(name, before))
             ref = plain(*args, **kwargs)
             torch.cuda.synchronize()
             err = chip_smoke.max_err(got, ref)[1]

@@ -88,7 +88,7 @@ ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke  # noqa: E402
-from ttnx_torch.kernels import _build  # noqa: E402
+from ttnx_torch.kernels import _build, dispatch  # noqa: E402
 from ttnx_torch.kernels.local_cg_mf import cg_matfree_batched_plain  # noqa
 
 WORK = ROOT / "build" / "probe_matfree"
@@ -396,8 +396,10 @@ def paths(dev):
             for route in (before, route_now, route_now, before):
                 local_cg_mf.matfree_route = chosen if route == route_now \
                     else (lambda *shape, r=before, **kw: r)
+                before = dispatch.route_counts()
                 ms = fn()
-                assert wrapper.route == route
+                assert set(chip_smoke.routes_of(wrapper.__name__,
+                                                before)) == {route}
                 print(f"path {label} B4/B5 route {route}: {ms:.3f}",
                       flush=True)
     finally:
@@ -484,6 +486,7 @@ def floor(dev, seed):
         print(f"floor {name}: set-up {time.perf_counter() - t0:.1f} s",
               flush=True)
         first, got = 0, {"chosen": [], "stub": []}
+        before = dispatch.route_counts()
         for kind in ("chosen", "stub", "stub", "chosen"):
             als_scan.cg_matfree_fused = cg_matfree_fused if kind == \
                 "chosen" else warm_start
@@ -496,8 +499,9 @@ def floor(dev, seed):
             print(f"floor {name} B4 {kind}: {got[kind][-1]:.3f} ms/step",
                   flush=True)
         ratio = statistics.mean(got["stub"]) / statistics.mean(got["chosen"])
-        print(f"floor {name}: stub / chosen {ratio:.3f} (B4 route "
-              f"{cg_matfree_fused.route})", flush=True)
+        print(f"floor {name}: stub / chosen {ratio:.3f} (B4 routes "
+              f"{chip_smoke.routes_of('cg_matfree_fused', before)})",
+              flush=True)
         gaps, host, sleep = host_issue(session, first)
         inner = sorted(gaps)
         print(f"host issue {name}: {len(gaps) + 1} local solves issued in "

@@ -13,7 +13,7 @@ their fast routes.
   4), 4 at most in 2-D (stored 5). The dense operators agree to 1e-12.
 * The packed rank: 1-D stays at 4 (its exact 3 and a zero channel), 2-D
   drops from 5 to 4, where B4, B2 and B1 take their fast routes.
-* ``route_counts`` files each launch under the wrapper's route.
+* ``route_counts`` files each launch under the route its wrapper returns.
 
 Card tests (marked ``cuda``, skipped without a card; this file imports no
 jax): one CN step of the benchmark's 2-D and 1-D configurations launches

@@ -14,7 +14,8 @@ B12 (CG, BiCGStab and Lanczos amplify the rounding of f32 products, and
 the chains repeat it); relative to the largest entry. bf16 chains: one
 bf16 ulp (2^-8) for each rounding of the chain, where f32 sums taken in
 another order cross a rounding boundary. B11 and B13 are held on every
-kernel route their wrappers choose by shape (``route``): B11 ``wgmma``
+kernel route their wrappers choose by shape (each launch filed under
+its route in ``dispatch.route_counts()``): B11 ``wgmma``
 (r <= 64) and ``wmma`` (r = 80), B13 ``mma`` (16-byte rows and ragged
 ones) and ``wmma`` (the largest shape); B11 also at the bench's 2048
 iterations on the norm-keeping input (rel Frobenius 1e-3, norm within 1 %).
@@ -70,7 +71,7 @@ from ttnx_torch.kernels.contraction import (chain_route, matmul_chain,
 from ttnx_torch.kernels.als_sweep_fused import (als_fwd_bwd_fused_batched,
                                                 als_fwd_bwd_plain,
                                                 sweep_route)
-from ttnx_torch.kernels.env_chain import (env_chain_A_fused,
+from ttnx_torch.kernels.env_chain import (env_A_route, env_chain_A_fused,
                                           env_chain_A_plain,
                                           env_chain_batched_plain,
                                           env_chain_fused_batched,
@@ -79,7 +80,7 @@ from ttnx_torch.kernels.env_chain import (env_chain_A_fused,
                                           right_env_chain_fused,
                                           right_env_chain_plain)
 from ttnx_torch.kernels.gram import (GRID_RANKS, gram_chain_fused,
-                                     gram_chain_plain)
+                                     gram_chain_plain, gram_route)
 from ttnx_torch.kernels.lanczos import (lanczos_fused, lanczos_plain,
                                         lanczos_route)
 from ttnx_torch.kernels.local_cg import (bicgstab_route,
@@ -94,6 +95,8 @@ from ttnx_torch.ops.operators import laplacian
 from ttnx_torch.solvers import als_scan
 from ttnx_torch.solvers.als_scan import rank_masks
 from ttnx_torch.solvers.mals_scan import mals_linsolve_scan
+
+from kernel_launches import launches
 
 DTYPES = [torch.float32, torch.float64]
 
@@ -150,10 +153,10 @@ def _local(rng, R, RA, n=2):
 def test_gram_chain_kernel(cuda, dtype, d, R):
     y = np.random.default_rng(R).standard_normal((d, R, 2, R)) / np.sqrt(R)
     (yt,) = _on(cuda, dtype, y)
-    before = gram_chain_fused.launches
-    got = gram_chain_fused(yt)
+    with launches(gram_chain_fused) as added:
+        got = gram_chain_fused(yt)
     torch.cuda.synchronize()
-    assert gram_chain_fused.launches == before + 1
+    assert added == {gram_route(dtype, d, R, 2): 1}
     _close(got, gram_chain_plain(yt), _tol(dtype))
 
 
@@ -166,11 +169,10 @@ def test_gram_chain_grid_route(cuda, R):
         2 * R)
     y[:, R - 7:] = 0.0
     (yt,) = _on(cuda, torch.float32, y)
-    before = gram_chain_fused.launches
-    got, again = gram_chain_fused(yt), gram_chain_fused(yt)
+    with launches(gram_chain_fused) as added:
+        got, again = gram_chain_fused(yt), gram_chain_fused(yt)
     torch.cuda.synchronize()
-    assert gram_chain_fused.launches == before + 2
-    assert gram_chain_fused.route == "grid"
+    assert added == {"grid": 2}
     assert torch.equal(got, again)
     _close(got, gram_chain_plain(yt), 1e-5)
 
@@ -183,10 +185,10 @@ def test_gram_chain_grid_refuses_unaligned_view(cuda):
     flat = torch.zeros(4 * R * 2 * R + 1, dtype=torch.float32, device=cuda)
     y = flat[1:].view(4, R, 2, R)
     assert y.is_contiguous() and y.data_ptr() % 16
-    before = gram_chain_fused.launches
-    with pytest.raises(ValueError, match="16-byte"):
+    with launches(gram_chain_fused) as added, pytest.raises(
+            ValueError, match="16-byte"):
         gram_chain_fused(y)
-    assert gram_chain_fused.launches == before
+    assert added == {}
 
 
 @pytest.mark.cuda
@@ -199,9 +201,10 @@ def test_gram_chain_staged_outside_the_grid_shapes(cuda, dtype, R):
     y = np.random.default_rng(R + 1).standard_normal((6, R, 2, R)) / np.sqrt(
         2 * R)
     (yt,) = _on(cuda, dtype, y)
-    got = gram_chain_fused(yt)
+    with launches(gram_chain_fused) as added:
+        got = gram_chain_fused(yt)
     torch.cuda.synchronize()
-    assert gram_chain_fused.route == "staged"
+    assert added == {"staged": 1}
     _close(got, gram_chain_plain(yt), _tol(dtype))
 
 
@@ -232,9 +235,10 @@ def test_cg_solve_kernel(cuda, dtype, warm):
     K, rhs, x0 = _on(cuda, dtype, g @ g.T + np.eye(M),
                      rng.standard_normal(M), rng.standard_normal(M))
     kw = dict(x0=x0 if warm else None, iters=12)
-    got = cg_solve_fused(K, rhs, **kw)
+    with launches(cg_solve_fused) as added:
+        got = cg_solve_fused(K, rhs, **kw)
     torch.cuda.synchronize()
-    assert cg_solve_fused.route == cg_route(dtype, M)
+    assert added == {cg_route(dtype, M): 1}
     _close(got, cg_solve_plain(K, rhs, **kw), _tol(dtype, loose=True))
 
 
@@ -256,10 +260,11 @@ def test_cg_solve_kernel_routes(cuda, dtype, M, route, warm):
                      rng.standard_normal(M), rng.standard_normal(M))
     kw = dict(x0=x0 if warm else None, iters=3 if M < 8 else 16)
     assert cg_route(dtype, M) == route
-    got = cg_solve_fused(K, rhs, **kw)
-    again = cg_solve_fused(K, rhs, **kw)
+    with launches(cg_solve_fused) as added:
+        got = cg_solve_fused(K, rhs, **kw)
+        again = cg_solve_fused(K, rhs, **kw)
     torch.cuda.synchronize()
-    assert cg_solve_fused.route == route
+    assert added == {route: 2}
     assert torch.equal(got, again)
     _close(got, cg_solve_plain(K, rhs, **kw), _tol(dtype, loose=True))
 
@@ -272,9 +277,10 @@ def test_cg_matfree_kernel(cuda, dtype, warm, R, RA):
     L, Ac, Renv, rhs, mask, x0 = _on(cuda, dtype, *_local(
         np.random.default_rng(R), R, RA))
     kw = dict(x0=x0 if warm else None, iters=10)
-    got = cg_matfree_fused(L, Ac, Renv, rhs, mask, **kw)
+    with launches(cg_matfree_fused) as added:
+        got = cg_matfree_fused(L, Ac, Renv, rhs, mask, **kw)
     torch.cuda.synchronize()
-    assert cg_matfree_fused.route == "streamed"
+    assert added == {"streamed": 1}
     _close(got, cg_matfree_plain(L, Ac, Renv, rhs, mask, **kw),
            _tol(dtype, loose=True))
 
@@ -290,11 +296,10 @@ def test_cg_matfree_batched_kernel(cuda, dtype, warm):
     L_, Ac, Renv_, rhs_, mask, x0_ = _on(cuda, dtype, L, local[0][1], Renv,
                                          rhs, local[0][4], x0)
     kw = dict(x0=x0_ if warm else None, iters=10)
-    before = cg_matfree_fused_batched.launches
-    got = cg_matfree_fused_batched(L_, Ac, Renv_, rhs_, mask, **kw)
+    with launches(cg_matfree_fused_batched) as added:
+        got = cg_matfree_fused_batched(L_, Ac, Renv_, rhs_, mask, **kw)
     torch.cuda.synchronize()
-    assert cg_matfree_fused_batched.launches == before + 1
-    assert cg_matfree_fused_batched.route == "streamed"
+    assert added == {"streamed": 1}
     _close(got, cg_matfree_batched_plain(L_, Ac, Renv_, rhs_, mask, **kw),
            _tol(dtype, loose=True))
 
@@ -328,11 +333,10 @@ def test_cg_matfree_resident_route(cuda, R, B, warm, scattered):
         wrapper, plain, args = (cg_matfree_fused_batched,
                                 cg_matfree_batched_plain,
                                 (L, Ac, Renv, rhs, mask))
-    before = wrapper.launches
-    got = wrapper(*args, **kw)
+    with launches(wrapper) as added:
+        got = wrapper(*args, **kw)
     torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
-    assert wrapper.route == route
+    assert added == {route: 1}
     _close(got, plain(*args, **kw), 1e-4)
 
 
@@ -357,7 +361,6 @@ def test_cg_matfree_cluster_route(cuda, R, warm, scattered):
     got = cg_matfree_fused(L, Ac, Renv, rhs, mask, **kw)
     again = cg_matfree_fused(L, Ac, Renv, rhs, mask, **kw)
     torch.cuda.synchronize()
-    assert cg_matfree_fused.route == "cluster"
     assert dispatch.launch_counts()["cg_matfree_fused"] == 2
     assert dispatch.route_counts()["cg_matfree_fused"] == {"cluster": 2}
     assert torch.equal(got, again)
@@ -366,7 +369,8 @@ def test_cg_matfree_cluster_route(cuda, R, warm, scattered):
         L[None], Ac, Renv[None], rhs[None], mask,
         x0=x0[None] if warm else None, iters=16)
     torch.cuda.synchronize()
-    assert cg_matfree_fused_batched.route == "resident"
+    assert dispatch.route_counts()["cg_matfree_fused_batched"] == {
+        "resident": 1}
     _close(got, one[0], 1e-4)
 
 
@@ -378,9 +382,10 @@ def test_cg_matfree_f64_at_resident_shape_streams(cuda):
     L, Renv, rhs, x0 = (np.stack([p[k] for p in local]) for k in (0, 2, 3, 5))
     args = _on(cuda, torch.float64, L, local[0][1], Renv, rhs, local[0][4])
     kw = dict(x0=_on(cuda, torch.float64, x0)[0], iters=10)
-    got = cg_matfree_fused_batched(*args, **kw)
+    with launches(cg_matfree_fused_batched) as added:
+        got = cg_matfree_fused_batched(*args, **kw)
     torch.cuda.synchronize()
-    assert cg_matfree_fused_batched.route == "streamed"
+    assert added == {"streamed": 1}
     _close(got, cg_matfree_batched_plain(*args, **kw), 1e-10)
 
 
@@ -419,10 +424,10 @@ def test_env_chain_cluster_route(cuda, R, left):
     args = _on(cuda, torch.float32, x[0], A, b[0])
     kernel = left_env_chain_fused if left else right_env_chain_fused
     plain = left_env_chain_plain if left else right_env_chain_plain
-    before = kernel.launches
-    got, again = kernel(*args), kernel(*args)
+    with launches(kernel) as added:
+        got, again = kernel(*args), kernel(*args)
     torch.cuda.synchronize()
-    assert kernel.launches == before + 2 and kernel.route == "cluster"
+    assert added == {"cluster": 2}
     assert all(torch.equal(g, a) for g, a in zip(got, again))
     _close(got, plain(*args), 1e-4)
 
@@ -440,9 +445,10 @@ def test_env_chain_resident_route(cuda, R, left, raw, shared_b):
     xt, At, bt = _on(cuda, torch.float32, x, A, b)
     if shared_b:
         bt = bt[:1].expand_as(bt)
-    got = env_chain_fused_batched(xt, At, bt, left=left, raw=raw)
+    with launches(env_chain_fused_batched) as added:
+        got = env_chain_fused_batched(xt, At, bt, left=left, raw=raw)
     torch.cuda.synchronize()
-    assert env_chain_fused_batched.route == "resident"
+    assert added == {"resident": 1}
     _close(got, env_chain_batched_plain(xt, At, bt, left=left, raw=raw),
            1e-4)
 
@@ -453,15 +459,15 @@ def test_env_chain_f64_at_site_shapes_stays_staged(cuda, batched):
     x, A, b = _site_problem(2, 3, 32, 9)
     xt, At, bt = _on(cuda, torch.float64, x, A, b)
     if batched:
-        got = env_chain_fused_batched(xt, At, bt)
-        ref, kernel = env_chain_batched_plain(xt, At, bt), \
-            env_chain_fused_batched
+        kernel, args = env_chain_fused_batched, (xt, At, bt)
+        ref = env_chain_batched_plain(*args)
     else:
-        got = right_env_chain_fused(xt[0], At, bt[0])
-        ref, kernel = right_env_chain_plain(xt[0], At, bt[0]), \
-            right_env_chain_fused
+        kernel, args = right_env_chain_fused, (xt[0], At, bt[0])
+        ref = right_env_chain_plain(*args)
+    with launches(kernel) as added:
+        got = kernel(*args)
     torch.cuda.synchronize()
-    assert kernel.route == "staged"
+    assert added == {"staged": 1}
     _close(got, ref, 1e-10)
 
 
@@ -498,9 +504,10 @@ def test_sweep_pair_kernel(cuda, dtype, kw):
     masks = rank_masks(rks, R, device="cpu").numpy()
     args = _on(cuda, dtype, A, bb, xb, masks)
     kw = dict(kw, cg_iters=12, ns_iters=(16, 6))
-    got = als_fwd_bwd_fused_batched(*args, **kw)
+    with launches(als_fwd_bwd_fused_batched) as added:
+        got = als_fwd_bwd_fused_batched(*args, **kw)
     torch.cuda.synchronize()
-    assert als_fwd_bwd_fused_batched.route == "folded"
+    assert added == {"folded": 1}
     _close(got, als_fwd_bwd_plain(*args, **kw), _tol(dtype, loose=True))
 
 
@@ -525,11 +532,10 @@ def test_sweep_pair_site_kernel(cuda, R, polish):
     against the plain version at the bench's CG and gauge settings."""
     args = _flat_sweep(cuda, torch.float32, R)
     assert sweep_route(torch.float32, R, 2, 4, 0) == "site"
-    before = als_fwd_bwd_fused_batched.launches
-    got = als_fwd_bwd_fused_batched(*args, cg_polish=polish)
+    with launches(als_fwd_bwd_fused_batched) as added:
+        got = als_fwd_bwd_fused_batched(*args, cg_polish=polish)
     torch.cuda.synchronize()
-    assert als_fwd_bwd_fused_batched.launches == before + 1
-    assert als_fwd_bwd_fused_batched.route == "site"
+    assert added == {"site": 1}
     _close(got, als_fwd_bwd_plain(*args, cg_polish=polish), 1e-4)
 
 
@@ -541,9 +547,10 @@ def test_sweep_pair_folded_route_at_site_shapes(cuda, dtype, R, kw):
     """At the site kernel's shapes, f64 and the bf16 refine stage keep PR
     2's folded kernel."""
     args = _flat_sweep(cuda, dtype, R, B=2)
-    got = als_fwd_bwd_fused_batched(*args, **kw)
+    with launches(als_fwd_bwd_fused_batched) as added:
+        got = als_fwd_bwd_fused_batched(*args, **kw)
     torch.cuda.synchronize()
-    assert als_fwd_bwd_fused_batched.route == "folded"
+    assert added == {"folded": 1}
     _close(got, als_fwd_bwd_plain(*args, **kw), _tol(dtype, loose=True))
 
 
@@ -599,10 +606,10 @@ def test_env_chain_A_kernel(cuda, dtype, left, R):
     x[..., R - 3:] = 0.0
     A = rng.standard_normal((d, RA, 2, 2, RA)) / RA
     xt, At = _on(cuda, dtype, x, A)
-    before = env_chain_A_fused.launches
-    got = env_chain_A_fused(xt, At, left=left)
+    with launches(env_chain_A_fused) as added:
+        got = env_chain_A_fused(xt, At, left=left)
     torch.cuda.synchronize()
-    assert env_chain_A_fused.launches == before + 1
+    assert added == {env_A_route(dtype, R, 2, RA): 1}
     assert got.shape == (d + 1, R, RA, R)
     _close(got, env_chain_A_plain(xt, At, left=left), _tol(dtype))
 
@@ -618,10 +625,11 @@ def test_env_chain_A_cluster_route(cuda, R, left):
     x = rng.standard_normal((d, R, 2, R)) / np.sqrt(2 * R)
     A = rng.standard_normal((d, RA, 2, 2, RA)) / RA
     xt, At = _on(cuda, torch.float32, x, A)
-    got, again = env_chain_A_fused(xt, At, left=left), env_chain_A_fused(
-        xt, At, left=left)
+    with launches(env_chain_A_fused) as added:
+        got = env_chain_A_fused(xt, At, left=left)
+        again = env_chain_A_fused(xt, At, left=left)
     torch.cuda.synchronize()
-    assert env_chain_A_fused.route == "cluster"
+    assert added == {"cluster": 2}
     assert torch.equal(got, again)
     _close(got, env_chain_A_plain(xt, At, left=left), 1e-5)
 
@@ -637,9 +645,10 @@ def test_env_chain_A_staged_outside_the_cluster_shapes(cuda, dtype, RA):
     x = rng.standard_normal((d, R, 2, R)) / np.sqrt(2 * R)
     A = rng.standard_normal((d, RA, 2, 2, RA)) / RA
     xt, At = _on(cuda, dtype, x, A)
-    got = env_chain_A_fused(xt, At)
+    with launches(env_chain_A_fused) as added:
+        got = env_chain_A_fused(xt, At)
     torch.cuda.synchronize()
-    assert env_chain_A_fused.route == "staged"
+    assert added == {"staged": 1}
     _close(got, env_chain_A_plain(xt, At), _tol(dtype))
 
 
@@ -659,11 +668,10 @@ def test_lanczos_kernel(cuda, dtype, iters):
     (1e-4 f32, 1e-10 f64). In f64 at iters 32 the basis no longer fits
     in shared memory and lives in the output."""
     K, v0 = _on(cuda, dtype, *_spread_K(np.random.default_rng(iters), 1024))
-    before = lanczos_fused.launches
-    got = lanczos_fused(K, v0, iters=iters)
+    with launches(lanczos_fused) as added:
+        got = lanczos_fused(K, v0, iters=iters)
     torch.cuda.synchronize()
-    assert lanczos_fused.launches == before + 1
-    assert lanczos_fused.route == lanczos_route(dtype, 1024)
+    assert added == {lanczos_route(dtype, 1024): 1}
     ref = lanczos_plain(K, v0, iters=iters)
     for g, r in zip(got, ref):
         _close(g, r, _tol(dtype, loose=True))
@@ -689,10 +697,10 @@ def test_lanczos_kernel_breakdown(cuda, dtype):
         K = np.diag(np.r_[1.0, 2.0, 3.0, np.zeros(M - 3)])
         v0 = np.eye(M)[1]
     K, v0 = _on(cuda, dtype, K, v0)
-    Q, alphas, betas = lanczos_fused(K, v0, iters=iters)
+    with launches(lanczos_fused) as added:
+        Q, alphas, betas = lanczos_fused(K, v0, iters=iters)
     torch.cuda.synchronize()
-    assert lanczos_fused.route == ("cluster" if dtype == torch.float32
-                                   else "l2")
+    assert added == {"cluster" if dtype == torch.float32 else "l2": 1}
     rQ, ra, rb = lanczos_plain(K, v0, iters=iters)
     assert torch.equal(betas == 0, rb == 0)
     dead = int(torch.nonzero(betas == 0)[0]) + 1
@@ -714,10 +722,11 @@ def test_lanczos_kernel_routes(cuda, dtype, M, iters, route):
     the same bits."""
     K, v0 = _on(cuda, dtype, *_spread_K(np.random.default_rng(M), M))
     assert lanczos_route(dtype, M) == route
-    got = lanczos_fused(K, v0, iters=iters)
-    again = lanczos_fused(K, v0, iters=iters)
+    with launches(lanczos_fused) as added:
+        got = lanczos_fused(K, v0, iters=iters)
+        again = lanczos_fused(K, v0, iters=iters)
     torch.cuda.synchronize()
-    assert lanczos_fused.route == route
+    assert added == {route: 2}
     assert all(torch.equal(g, a) for g, a in zip(got, again))
     for g, r in zip(got, lanczos_plain(K, v0, iters=iters)):
         _close(g, r, _tol(dtype, loose=True))
@@ -732,11 +741,10 @@ def test_bicgstab_kernel(cuda, dtype, M):
     rng = np.random.default_rng(M)
     K, rhs = _on(cuda, dtype, rng.standard_normal((M, M)) / np.sqrt(M)
                  + 2.0 * np.eye(M), rng.standard_normal(M))
-    before = bicgstab_solve_fused.launches
-    got = bicgstab_solve_fused(K, rhs, iters=16)
+    with launches(bicgstab_solve_fused) as added:
+        got = bicgstab_solve_fused(K, rhs, iters=16)
     torch.cuda.synchronize()
-    assert bicgstab_solve_fused.launches == before + 1
-    assert bicgstab_solve_fused.route == bicgstab_route(dtype, M)
+    assert added == {bicgstab_route(dtype, M): 1}
     _close(got, bicgstab_solve_plain(K, rhs, iters=16),
            _tol(dtype, loose=True))
 
@@ -756,10 +764,11 @@ def test_bicgstab_kernel_routes(cuda, dtype, M, route):
                  + 2.0 * np.eye(M), rng.standard_normal(M))
     iters = 3 if M < 8 else 32
     assert bicgstab_route(dtype, M) == route
-    got = bicgstab_solve_fused(K, rhs, iters=iters)
-    again = bicgstab_solve_fused(K, rhs, iters=iters)
+    with launches(bicgstab_solve_fused) as added:
+        got = bicgstab_solve_fused(K, rhs, iters=iters)
+        again = bicgstab_solve_fused(K, rhs, iters=iters)
     torch.cuda.synchronize()
-    assert bicgstab_solve_fused.route == route
+    assert added == {route: 2}
     assert torch.equal(got, again)
     _close(got, bicgstab_solve_plain(K, rhs, iters=iters),
            _tol(dtype, loose=True))
@@ -780,11 +789,10 @@ def test_two_site_merge_kernel(cuda, dtype, B, m, k, n):
     rng = np.random.default_rng(m)
     a, b = _on(cuda, dtype, rng.standard_normal((B, m, k)),
                rng.standard_normal((B, k, n)))
-    before = two_site_merge.launches
-    got = two_site_merge(a, b)
+    with launches(two_site_merge) as added:
+        got = two_site_merge(a, b)
     torch.cuda.synchronize()
-    assert two_site_merge.launches == before + 1
-    assert two_site_merge.route == merge_route(dtype, m, k, n)
+    assert added == {merge_route(dtype, m, k, n): 1}
     assert got.dtype == torch.float32
     _close(got, two_site_merge_plain(a, b), 1e-5)
 
@@ -795,11 +803,10 @@ def test_two_site_merge_kernel_wmma_route(cuda):
     rng = np.random.default_rng(3)
     a, b = _on(cuda, torch.bfloat16, rng.standard_normal((2, 256, 192)),
                rng.standard_normal((2, 192, 256)))
-    before = two_site_merge.launches
-    got = two_site_merge(a, b)
+    with launches(two_site_merge) as added:
+        got = two_site_merge(a, b)
     torch.cuda.synchronize()
-    assert two_site_merge.launches == before + 1
-    assert two_site_merge.route == "wmma"
+    assert added == {"wmma": 1}
     _close(got, two_site_merge_plain(a, b), 1e-5)
 
 
@@ -814,11 +821,10 @@ def test_matmul_chain_kernel(cuda, dtype, B, m, k):
     rng = np.random.default_rng(k)
     x, w = _on(cuda, dtype, 0.1 * rng.standard_normal((B, m, k)),
                _orthonormal(rng, B, k, k))
-    before = matmul_chain.launches
-    got = matmul_chain(x, w, iters=8)
+    with launches(matmul_chain) as added:
+        got = matmul_chain(x, w, iters=8)
     torch.cuda.synchronize()
-    assert matmul_chain.launches == before + 1
-    assert matmul_chain.route == matmul_chain_route(dtype, m, k)
+    assert added == {matmul_chain_route(dtype, m, k): 1}
     assert got.dtype == dtype
     _close(got.float(), matmul_chain_plain(x, w, iters=8).float(),
            _mm_tol(dtype, 8))
@@ -832,8 +838,9 @@ def test_matmul_chain_kernel_bf16_routes(cuda, B, m, k, route):
     """bf16 B12 on both routes: wgmma at k <= 128 (padded to 64 or 128,
     rows to strips of 64), ragged, and wmma past it."""
     assert matmul_chain_route(torch.bfloat16, m, k) == route
-    test_matmul_chain_kernel(cuda, torch.bfloat16, B, m, k)
-    assert matmul_chain.route == route
+    with launches(matmul_chain) as added:
+        test_matmul_chain_kernel(cuda, torch.bfloat16, B, m, k)
+    assert added == {route: 1}
 
 
 @pytest.mark.cuda
@@ -842,9 +849,10 @@ def test_matmul_chain_kernel_norm_keeping(cuda, B, m, k):
     """The bench's 1024 iterations on an input whose iterate keeps its
     norm (w w^T = I exactly in bf16): every iteration counts."""
     p = norm_keeping_matmul_problem(cuda, batch=B, m=m, k=k, seed=k)
-    got = matmul_chain(p["x"], p["w"], iters=1024)
+    with launches(matmul_chain) as added:
+        got = matmul_chain(p["x"], p["w"], iters=1024)
     torch.cuda.synchronize()
-    assert matmul_chain.route == "wgmma"
+    assert added == {"wgmma": 1}
     ref = matmul_chain_plain(p["x"], p["w"], iters=1024)
     got, ref, x = got.float(), ref.float(), p["x"].float()
     assert float((got - ref).norm() / ref.norm()) <= 1e-3
@@ -859,11 +867,10 @@ def test_merge_resplit_chain_kernel(cuda, dtype, B, r, n):
     a, b, w = _on(cuda, dtype, 0.1 * rng.standard_normal((B, r * n, r)),
                   np.swapaxes(_orthonormal(rng, B, n * r, r), 1, 2),
                   _orthonormal(rng, B, n * r, r))
-    before = merge_resplit_chain.launches
-    got = merge_resplit_chain(a, b, w, iters=8)
+    with launches(merge_resplit_chain) as added:
+        got = merge_resplit_chain(a, b, w, iters=8)
     torch.cuda.synchronize()
-    assert merge_resplit_chain.launches == before + 1
-    assert merge_resplit_chain.route == chain_route(dtype, r, n * r)
+    assert added == {chain_route(dtype, r, n * r): 1}
     _close(got.float(), merge_resplit_chain_plain(a, b, w, iters=8).float(),
            _mm_tol(dtype, 16))
 
@@ -882,11 +889,10 @@ def test_merge_resplit_chain_kernel_norm_keeping(cuda, B, r, n):
     """The bench's 2048 iterations on an input whose iterate keeps its
     norm (b w = I exactly in bf16): every iteration counts."""
     p = norm_keeping_contraction_problem(cuda, batch=B, r=r, n=n, seed=r)
-    before = merge_resplit_chain.launches
-    got = merge_resplit_chain(p["a"], p["b"], p["w"], iters=2048)
+    with launches(merge_resplit_chain) as added:
+        got = merge_resplit_chain(p["a"], p["b"], p["w"], iters=2048)
     torch.cuda.synchronize()
-    assert merge_resplit_chain.launches == before + 1
-    assert merge_resplit_chain.route == "wgmma"
+    assert added == {"wgmma": 1}
     ref = merge_resplit_chain_plain(p["a"], p["b"], p["w"], iters=2048)
     got, ref, a = got.float(), ref.float(), p["a"].float()
     assert float((got - ref).norm() / ref.norm()) <= 1e-3
@@ -899,8 +905,9 @@ def _env_A_routes(monkeypatch):
     routes = []
 
     def call(*args, **kwargs):
-        out = env_chain_A_fused(*args, **kwargs)
-        routes.append(env_chain_A_fused.route)
+        with launches(env_chain_A_fused) as added:
+            out = env_chain_A_fused(*args, **kwargs)
+        routes.extend(added)
         return out
 
     monkeypatch.setattr(als_scan, "env_chain_A_fused", call)
@@ -913,9 +920,9 @@ def test_als_eigsolve_on_route_cluster(cuda, monkeypatch):
     sweep, both on route cluster, and the ground energy within 1e-5."""
     p = als_eig_problem(cuda, d=12, rmax=32, dtype=torch.float32)
     routes = _env_A_routes(monkeypatch)
-    before = env_chain_A_fused.launches
-    E, x = als_scan.als_eigsolve_scan(p["A"], p["x0"], n_sweeps=1)
-    assert env_chain_A_fused.launches == before + 2
+    with launches(env_chain_A_fused) as added:
+        E, x = als_scan.als_eigsolve_scan(p["A"], p["x0"], n_sweeps=1)
+    assert added == {"cluster": 2}
     assert routes == ["cluster", "cluster"]
     E0 = dense_xxx_groundstate(12)
     assert np.isfinite(E).all() and abs(E[-1] - E0) <= 1e-5 * abs(E0)

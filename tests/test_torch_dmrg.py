@@ -40,6 +40,8 @@ from ttnx_torch.solvers.als_scan import unpack_tt
 from ttnx_torch.utils.convert import (stack_from_numpy, ttoperator_from_numpy,
                                       ttvector_from_numpy)
 
+from kernel_launches import launches
+
 F64, F32 = np.float64, np.float32
 
 
@@ -214,9 +216,9 @@ def test_can_fuse_lanczos_and_kernel_gate():
     assert can_fuse_lanczos(torch.float32, 1024)
     assert not can_fuse_lanczos(torch.float64, 1025)
     assert not can_fuse_lanczos(torch.complex128, 64)
-    before = lanczos_fused.launches
-    lanczos_fused(torch.eye(4), torch.ones(4) / 2, iters=2)
-    assert lanczos_fused.launches == before  # CPU: the plain version
+    with launches(lanczos_fused) as added:
+        lanczos_fused(torch.eye(4), torch.ones(4) / 2, iters=2)
+    assert added == {}  # CPU: the plain version
 
 
 # ---------------------------------------------------------------------------
@@ -407,10 +409,10 @@ def test_eig_sweep_kernels_counted_only_on_card():
     """On CPU tensors the sweep takes B8's and B9's plain versions: no
     launch is counted."""
     A, x, m = _xxx_problem(4, 4, F64)
-    before = (env_chain_A_fused.launches, lanczos_fused.launches)
-    td.dmrg_eig_sweep(_t(A, F64), _t(x, F64), _t(m, F64), 1e-8, 1e-8,
-                      lanczos_iters=4, eig_solver="lanczos_fused")
-    assert (env_chain_A_fused.launches, lanczos_fused.launches) == before
+    with launches(env_chain_A_fused) as env, launches(lanczos_fused) as lz:
+        td.dmrg_eig_sweep(_t(A, F64), _t(x, F64), _t(m, F64), 1e-8, 1e-8,
+                          lanczos_iters=4, eig_solver="lanczos_fused")
+    assert env == lz == {}
 
 
 def test_dense_xxx_groundstate_sparse_matches_dense():

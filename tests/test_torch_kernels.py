@@ -30,8 +30,6 @@ from ttnx.kernels.local_cg_mf import cg_matfree_fused as j_mf
 from ttnx.solvers.als_scan import _local_solve_padded as j_local_solve
 
 from ttnx_torch.kernels import _build, dispatch
-from ttnx_torch.kernels import als_sweep_fused  # noqa: F401  (registers B7)
-from ttnx_torch.kernels import contraction  # noqa: F401  (registers B11-B13)
 from ttnx_torch.kernels import env_chain, lanczos, local_cg
 from ttnx_torch.kernels.env_chain import (env_chain_batched_plain,
                                           env_chain_fused_batched, env_route,
@@ -51,6 +49,8 @@ from ttnx_torch.kernels.local_cg_mf import (cg_matfree_batched_plain,
                                             cg_matfree_fused_batched,
                                             cg_matfree_plain, matfree_route)
 from ttnx_torch.solvers.als_scan import _local_solve_padded as t_local_solve
+
+from kernel_launches import launches
 
 F64, F32 = np.float64, np.float32
 T32 = torch.float32
@@ -287,7 +287,6 @@ def test_cpu_tensor_takes_plain_version(case):
                     ref if isinstance(ref, tuple) else (ref,)):
         assert torch.equal(g, r)
     assert all(v == 0 for v in dispatch.launch_counts().values())
-    assert wrapper.launches == 0
 
 
 @pytest.mark.parametrize("dtype,R,n,RA,route", [
@@ -325,11 +324,10 @@ def test_cpu_tensors_at_resident_shape_take_plain(batched):
         x0 = torch.stack([x0, -x0])
     assert matfree_route(torch.float32, 32, 2, args[1].shape[0],
                          batched) == ("resident" if batched else "cluster")
-    route, before = wrapper.route, wrapper.launches
-    assert torch.equal(wrapper(*args, x0=x0, iters=3),
-                       plain(*args, x0=x0, iters=3))
-    assert wrapper.launches == before
-    assert wrapper.route == route
+    with launches(wrapper) as added:
+        assert torch.equal(wrapper(*args, x0=x0, iters=3),
+                           plain(*args, x0=x0, iters=3))
+    assert added == {}
 
 
 @pytest.mark.parametrize("dtype,M,route", [
@@ -386,21 +384,19 @@ def test_lanczos_cluster_layout():
 
 def test_cpu_tensors_take_plain_b3_b9():
     """f32 K at the cluster routes' sizes on the CPU: the plain versions,
-    no launch, the recorded routes untouched."""
+    no launch filed under any route."""
     rng = np.random.default_rng(3)
     g = rng.standard_normal((40, 40))
     K = _t(g @ g.T / 40 + np.eye(40), F32)
     v = _t(rng.standard_normal(40) / np.sqrt(40), F32)
     assert cg_route(T32, 40) == lanczos_route(T32, 40) == "cluster"
-    before = (cg_solve_fused.launches, cg_solve_fused.route,
-              lanczos_fused.launches, lanczos_fused.route)
-    assert torch.equal(cg_solve_fused(K, v, x0=v, iters=3),
-                       cg_solve_plain(K, v, x0=v, iters=3))
-    for g_, r_ in zip(lanczos_fused(K, v, iters=3),
-                      lanczos_plain(K, v, iters=3)):
-        assert torch.equal(g_, r_)
-    assert (cg_solve_fused.launches, cg_solve_fused.route,
-            lanczos_fused.launches, lanczos_fused.route) == before
+    with launches(cg_solve_fused) as cg, launches(lanczos_fused) as lz:
+        assert torch.equal(cg_solve_fused(K, v, x0=v, iters=3),
+                           cg_solve_plain(K, v, x0=v, iters=3))
+        for g_, r_ in zip(lanczos_fused(K, v, iters=3),
+                          lanczos_plain(K, v, iters=3)):
+            assert torch.equal(g_, r_)
+    assert cg == lz == {}
 
 
 @pytest.mark.parametrize("dtype,B,R,n,RA,Rb,route", [
@@ -441,8 +437,8 @@ def test_env_A_site_layouts_fit_one_block():
 @pytest.mark.parametrize("kernel", ["B1", "B8"])
 def test_cpu_tensors_at_grid_and_cluster_shapes_take_plain_b1_b8(kernel):
     """f32 at B1's route grid (RB = 64) and B8's route cluster (R = 16,
-    RA = 5) shapes on the CPU: the plain versions, no launch, the recorded
-    route untouched."""
+    RA = 5) shapes on the CPU: the plain versions, no launch filed under
+    any route."""
     rng = np.random.default_rng(6)
     if kernel == "B1":
         wrapper, plain = gram_chain_fused, gram_chain_plain
@@ -453,15 +449,15 @@ def test_cpu_tensors_at_grid_and_cluster_shapes_take_plain_b1_b8(kernel):
         args = (_t(rng.standard_normal((3, 16, 2, 16)) / 4, F32),
                 _t(rng.standard_normal((3, 5, 2, 2, 5)) / 5, F32))
         kw = {"left": True}
-    route, before = wrapper.route, wrapper.launches
-    assert torch.equal(wrapper(*args, **kw), plain(*args, **kw))
-    assert (wrapper.launches, wrapper.route) == (before, route)
+    with launches(wrapper) as added:
+        assert torch.equal(wrapper(*args, **kw), plain(*args, **kw))
+    assert added == {}
 
 
 @pytest.mark.parametrize("batched", [False, True], ids=["B2", "B6"])
 def test_cpu_tensors_at_site_shapes_take_plain_b2_b6(batched):
     """f32 at the new routes' shapes on the CPU: the plain versions, no
-    launch, the recorded route untouched."""
+    launch filed under any route."""
     rng = np.random.default_rng(5)
     d, R = 3, 16
     x = _t(rng.standard_normal((2, d, R, 2, R)) / R, F32)
@@ -473,10 +469,10 @@ def test_cpu_tensors_at_site_shapes_take_plain_b2_b6(batched):
     else:
         wrapper, args = right_env_chain_fused, (x[0], A, b[0])
         ref = right_env_chain_plain(*args)
-    route, before = wrapper.route, wrapper.launches
-    for g_, r_ in zip(wrapper(*args), ref):
-        assert torch.equal(g_, r_)
-    assert (wrapper.launches, wrapper.route) == (before, route)
+    with launches(wrapper) as added:
+        for g_, r_ in zip(wrapper(*args), ref):
+            assert torch.equal(g_, r_)
+    assert added == {}
 
 
 def test_gate_rejects_other_devices_and_types():

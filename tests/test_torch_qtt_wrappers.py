@@ -372,18 +372,22 @@ class TestMultiDimContracts:
 
 def test_qtt_bridges_carry_ttnx_objects():
     """ttnx QTT objects, passed as numpy cores plus metadata, come out as
-    the same QTT objects of the port."""
+    the same QTT objects of the port: the cores bit for bit, the dense
+    arrays to ``PARITY`` (two libraries' float contractions of the same
+    cores may part in the last bit)."""
     jq = ttnx.function_to_qttv(lambda c: c[..., 0] * np.exp(c[..., 1]), 2, 3,
                                ordering="interleaved")
     q = qttvector_from_numpy([np.array(c) for c in jq.cores], jq.n_dims,
                              jq.bits_per_dim, jq.ordering, jq.ot, device=CPU)
     assert (q.n_dims, q.bits_per_dim, q.ordering, q.ot) == (
         jq.n_dims, jq.bits_per_dim, jq.ordering, jq.ot)
-    arrays(jq, q, 0.0)
+    arrays(jq, q)
     jA = ttnx.qtt_laplacian(2, 4, ordering="serial")
     A = qttoperator_from_numpy([np.array(c) for c in jA.cores], 2, 4,
                                "serial", device=CPU, dtype=torch.float64)
     assert isinstance(A, tx.QTTOperator) and A.ordering == "serial"
-    _agree(_np(tx.qtto_to_matrix(A)), _np(ttnx.qtto_to_matrix(jA)), 0.0)
+    _agree(_np(tx.qtto_to_matrix(A)), _np(ttnx.qtto_to_matrix(jA)))
     assert all(np.array_equal(a, np.asarray(b))
                for a, b in zip(to_numpy(q), jq.cores))
+    assert all(np.array_equal(a, np.asarray(b))
+               for a, b in zip(to_numpy(A), jA.cores))

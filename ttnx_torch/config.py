@@ -79,14 +79,17 @@ def to_kwargs(cfg) -> dict:
 @contextmanager
 def matmul_precision(level: str = "highest"):
     """Scoped matmul precision ('default' | 'high' | 'highest'):
-    ``'highest'`` turns TF32 off for float32 matmuls, the other levels
-    allow it; the previous setting comes back on exit."""
-    saved = torch.backends.cuda.matmul.allow_tf32
+    ``'highest'`` turns TF32 off for float32 matmuls and cuDNN, the other
+    levels allow it; the previous settings come back on exit."""
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = level != "highest"
+    torch.backends.cudnn.allow_tf32 = level != "highest"
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32 = saved
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
 
 
 def script_device() -> torch.device:

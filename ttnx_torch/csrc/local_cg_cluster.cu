@@ -272,7 +272,7 @@ extern "C" long long ttnx_cg_matfree_cluster_smem(int R) {
 }
 
 // B4, route cluster: L, Ac, Renv, rhs, mask, x0 and out of ONE problem in
-// the layouts of ttnx_cg_matfree_f32 (no scratch); (R, n, RA) = (64, 2, 4)
+// the layouts of ttnx_cg_matfree_batched_f32 at B = 1 (no scratch); (R, n, RA) = (64, 2, 4)
 // or (32, 2, 4), other shapes are refused.
 extern "C" int ttnx_cg_matfree_cluster_f32(const void* L, const void* Ac,
                                            const void* Renv, const void* rhs,

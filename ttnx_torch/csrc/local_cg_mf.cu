@@ -177,20 +177,6 @@ int cg_matfree(const T* L, const T* Ac, const T* Renv, const T* rhs,
 
 using namespace ttnx_cg_mf;
 
-#define TTNX_MF_ENTRY(NAME, T)                                                \
-  extern "C" int NAME(const void* L, const void* Ac, const void* Renv,        \
-                      const void* rhs, const void* mask, const void* x0,      \
-                      void* out, void* scratch, int R, int RA, int n,         \
-                      int iters, int warm, void* stream) {                    \
-    return cg_matfree<T>((const T*)L, (const T*)Ac, (const T*)Renv,           \
-                         (const T*)rhs, (const T*)mask, (const T*)x0,         \
-                         (T*)out, (T*)scratch, 1, R, RA, n, iters, warm,      \
-                         (cudaStream_t)stream);                               \
-  }
-
-TTNX_MF_ENTRY(ttnx_cg_matfree_f32, float)
-TTNX_MF_ENTRY(ttnx_cg_matfree_f64, double)
-
 #define TTNX_MF_BATCHED_ENTRY(NAME, T)                                        \
   extern "C" int NAME(const void* L, const void* Ac, const void* Renv,        \
                       const void* rhs, const void* mask, const void* x0,      \

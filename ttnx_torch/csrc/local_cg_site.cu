@@ -1,11 +1,11 @@
-// Kernels B4 and B5, resident route: matrix-free fixed-iteration CG for the
-// ALS local solve, f32, at compile-time shapes (R, n, RA), for a batch of
-// B problems with a shared MPO core and mask (B5; B4 is the grid of one).
+// Kernel B5, resident route: matrix-free fixed-iteration CG for the ALS
+// local solve, f32, at compile-time shapes (R, n, RA), for a batch of B
+// problems with a shared MPO core and mask. One problem at these shapes
+// (B4) takes the cluster route, csrc/local_cg_cluster.cu.
 //
 // Replaces ttnx/kernels/local_cg_mf.py, cg_matfree_fused_batched
-// (_kernel_batched, pallas_call at :225) and cg_matfree_fused (_kernel,
-// pallas_call at :260), as csrc/local_cg_mf.cu does for f64 and every
-// other shape. Local operator, for any mask (R, n, R):
+// (_kernel_batched, pallas_call at :225), as csrc/local_cg_mf.cu does for
+// f64 and every other shape. Local operator, for any mask (R, n, R):
 //   K v[a,i,c] = sum L[a,W,b] Ac[W,i,J,w] Renv[c,w,d] (v*mask)[b,J,d]
 //   apply(v)   = (K v) * mask + (1 - mask) * v
 // CG on rhs * mask from x0 * mask (warm) or 0, returns x * mask.

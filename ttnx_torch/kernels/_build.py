@@ -12,15 +12,13 @@ together, then one link::
 The file name carries a hash of the sources and flags, so an edited kernel
 never loads a stale library. The library is loaded with ``ctypes``; every
 entry point takes ``c_void_p`` for pointers and the stream, ``c_int`` for
-sizes (``c_longlong`` for an element stride), and returns ``cudaGetLastError()`` after its launches. Each entry
-point exists for the dtype suffixes its signature lists: ``f32`` and
-``f64`` for the linear-algebra kernels, ``f32`` alone for the
-site-resident routes of B7, B5 and B6, the cluster routes of B2,
-B3, B4, B8, B9 and B10 and the grid route of B1,
-``bf16`` and ``f32`` for the contraction kernels, ``bf16`` alone for
-their tensor-core routes. ``ttnx_qr_batched_f32`` and ``_f64``
-(``csrc/qr_batched.cu``) are the batched ALS's gauge QR, which replaces
-no TPU kernel.
+sizes (``c_longlong`` for an element stride), and returns
+``cudaGetLastError()`` after its launches. Each entry point exists for the
+dtype suffixes its line of ``_SIGNATURES`` lists; which one a call takes
+is decided by its wrapper's route function (``gram_route``,
+``env_route``, ``env_A_route``, ``matfree_route``, ``cg_route``,
+``bicgstab_route``, ``lanczos_route``, ``sweep_route``, ``chain_route``,
+``matmul_chain_route``, ``merge_route``).
 """
 
 from __future__ import annotations
@@ -68,9 +66,8 @@ _SIGNATURES = {
     # K, rhs, out, M, iters, stream
     "bicgstab": ([P, P, P, I, I, P], REAL),
     "bicgstab_cluster": ([P, P, P, I, I, P], ("f32",)),
-    # L, Ac, Renv, rhs, mask, x0, out, scratch, R, RA, n, iters, warm, stream
-    "cg_matfree": ([P, P, P, P, P, P, P, P, I, I, I, I, I, P], REAL),
-    # the same with B first among the sizes
+    # L, Ac, Renv, rhs, mask, x0, out, scratch, B, R, RA, n, iters, warm,
+    # stream; one problem is a batch of one
     "cg_matfree_batched": ([P, P, P, P, P, P, P, P, I, I, I, I, I, I, P],
                            REAL),
     # the same arguments; (R, n, RA) = (64, 2, 4) or (32, 2, 4)

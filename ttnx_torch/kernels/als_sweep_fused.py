@@ -13,8 +13,7 @@ QR; represented vectors match ``als_sweeps_b(..., sweep_count=2)``.
 :func:`als_fwd_bwd_fused_batched` runs the pass through a Hopper kernel
 for CUDA tensors and through :func:`als_fwd_bwd_plain` for CPU tensors.
 The kernel is chosen by dtype, shape and ``cg_refine`` alone, never on a
-failure (:func:`sweep_route`); the route of the last launch is kept in the
-wrapper's ``route`` attribute:
+failure (:func:`sweep_route`):
 
 * ``"site"`` — ``csrc/als_sweep_site.cu``: float32 at ``(R, n, RA)`` in
   :data:`SITE_SHAPES` with ``cg_refine == 0``; the site's operators stay in
@@ -244,7 +243,7 @@ def als_fwd_bwd_fused_batched(A_stack, b_batch, x_batch, masks, *,
     kw = dict(cg_iters=cg_iters, cg_refine=cg_refine, cg_polish=cg_polish,
               ns_iters=ns_iters)
     if not use_kernel(*args):
-        return als_fwd_bwd_plain(*args, **kw)
+        return als_fwd_bwd_plain(*args, **kw), None
     require_real("als_fwd_bwd_fused_batched", *args)
     B, d, R, n, _ = x_batch.shape
     RA = A_stack.shape[1]
@@ -269,9 +268,4 @@ def als_fwd_bwd_fused_batched(A_stack, b_batch, x_batch, masks, *,
                 out.data_ptr(), scratch.data_ptr(), B, d, R, RA, n,
                 int(cg_iters), int(cg_refine), int(cg_polish), int(ns1),
                 int(ns2))
-    als_fwd_bwd_fused_batched.launches += 1
-    als_fwd_bwd_fused_batched.route = route
-    return out
-
-
-als_fwd_bwd_fused_batched.route = None
+    return out, route

@@ -20,9 +20,7 @@ counterpart here. The callers pass orthonormal ``b``, ``w`` so the
 normalization-free chains stay bounded.
 
 Each wrapper picks its kernel by dtype and shape, never on a failure
-(:func:`chain_route`, :func:`matmul_chain_route`, :func:`merge_route`);
-the route of the last launch is kept in the wrapper's ``route``
-attribute:
+(:func:`chain_route`, :func:`matmul_chain_route`, :func:`merge_route`):
 
 * B11 ``"wgmma"`` — bf16 with ``r <= 64`` and ``n <= 512`` (the iterate
   in registers, wgmma); ``"wmma"`` — other bf16 shapes; ``"f32"`` — IEEE
@@ -110,7 +108,7 @@ def two_site_merge(a, b):
     B, m, k = a.shape
     _check("two_site_merge", b.dim() == 3 and b.shape[:2] == (B, k), a, b)
     if not use_kernel(a, b):
-        return two_site_merge_plain(a, b)
+        return two_site_merge_plain(a, b), None
     n = b.shape[2]
     a, b = a.contiguous(), b.contiguous()
     out = torch.empty((B, m, n), dtype=torch.float32, device=a.device)
@@ -118,12 +116,7 @@ def two_site_merge(a, b):
     _build.call("two_site_merge_mma" if route == "mma"
                 else "two_site_merge", a.dtype, a.data_ptr(), b.data_ptr(),
                 out.data_ptr(), B, m, k, n)
-    two_site_merge.launches += 1
-    two_site_merge.route = route
-    return out
-
-
-two_site_merge.route = None
+    return out, route
 
 
 def matmul_chain_plain(x, w, iters: int = 8):
@@ -140,19 +133,14 @@ def matmul_chain(x, w, iters: int = 8):
     B, m, k = x.shape
     _check("matmul_chain", w.shape == (B, k, k), x, w)
     if not use_kernel(x, w):
-        return matmul_chain_plain(x, w, iters)
+        return matmul_chain_plain(x, w, iters), None
     x, w = x.contiguous(), w.contiguous()
     out = torch.empty_like(x)
     route = matmul_chain_route(x.dtype, m, k)
     _build.call("matmul_chain_wgmma" if route == "wgmma" else "matmul_chain",
                 x.dtype, x.data_ptr(), w.data_ptr(), out.data_ptr(), B, m, k,
                 int(iters))
-    matmul_chain.launches += 1
-    matmul_chain.route = route
-    return out
-
-
-matmul_chain.route = None
+    return out, route
 
 
 def merge_resplit_chain_plain(a, b, w, iters: int = 8):
@@ -173,7 +161,7 @@ def merge_resplit_chain(a, b, w, iters: int = 8):
     _check("merge_resplit_chain",
            b.shape == (B, r, n) and w.shape == (B, n, r), a, b, w)
     if not use_kernel(a, b, w):
-        return merge_resplit_chain_plain(a, b, w, iters)
+        return merge_resplit_chain_plain(a, b, w, iters), None
     a, b, w = a.contiguous(), b.contiguous(), w.contiguous()
     out = torch.empty_like(a)
     route = chain_route(a.dtype, r, n)
@@ -181,9 +169,4 @@ def merge_resplit_chain(a, b, w, iters: int = 8):
                 else "merge_resplit_chain", a.dtype, a.data_ptr(),
                 b.data_ptr(), w.data_ptr(), out.data_ptr(), B, m, r, n,
                 int(iters))
-    merge_resplit_chain.launches += 1
-    merge_resplit_chain.route = route
-    return out
-
-
-merge_resplit_chain.route = None
+    return out, route

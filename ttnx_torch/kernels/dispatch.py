@@ -6,12 +6,13 @@ version, a CUDA tensor launches the hand-written Hopper kernel or raises.
 There is no fallback from a CUDA tensor to the plain version — a missing
 ``nvcc`` or a refused launch is an error, never a silent slow path.
 
-Each wrapper carries a plain integer ``launches`` attribute that it bumps
-once per kernel launch, so a run can show that its main path went through
-the kernels (``chip_smoke.py`` resets and reads them around the CN step).
-:func:`counted` files each launch under the route the wrapper chose (its
-``route`` attribute, ``"kernel"`` for a wrapper with one kernel), so
-:func:`route_counts` shows a shape that left a fast route as a count.
+:func:`counted` is the one record of a launch. The wrapped body returns
+``(out, route)``: the route of the one kernel it launched (``"kernel"`` for
+a wrapper with one kernel), or ``None`` when it took the plain version.
+:func:`counted` files the launch under that route and returns ``out``, so
+:func:`route_counts` shows which kernels a run went through and a shape
+that left a fast route as a count (``chip_smoke.py`` resets and reads it
+around the CN step), and :func:`launch_counts` sums it by wrapper.
 
 :func:`counted` also puts two checks around every wrapper, on both routes
 and both devices. A kernel has no backward (the JAX package defines no
@@ -35,7 +36,8 @@ __all__ = ["use_kernel", "counted", "launch_counts", "route_counts",
            "require_real", "require_mm_type", "can_fuse_local_cg",
            "refuse_grad", "check_nan", "NAN_TRAP"]
 
-_COUNTED = []
+# wrapper name -> {route: launches}, every wrapper from its registration
+_ROUTES = {}
 
 # the state of ``utils.validation.debug_nans`` (one trap per process, as
 # ``jax_debug_nans`` is one flag)
@@ -100,45 +102,41 @@ def check_nan(name: str, out) -> None:
 
 
 def counted(fn):
-    """Give a kernel wrapper its ``launches`` counter and its launches by
-    route, the gradient gate on all of its tensor arguments and the NaN
-    trap on its outputs, and register it."""
+    """Register kernel wrapper ``fn``, whose body returns ``(out, route)``,
+    and give it the gradient gate on all of its tensor arguments, the
+    launch record and the NaN trap on its outputs; the gated wrapper
+    returns ``out``."""
     name = fn.__name__
+    routes = _ROUTES.setdefault(name, {})
 
     @functools.wraps(fn)
     def gated(*args, **kwargs):
         refuse_grad(name, _tensors(args) + _tensors(kwargs.values()))
-        before = gated.launches
-        out = fn(*args, **kwargs)
-        if gated.launches != before:
-            route = getattr(gated, "route", None) or "kernel"
-            gated.routes[route] = (gated.routes.get(route, 0)
-                                   + gated.launches - before)
+        out, route = fn(*args, **kwargs)
+        if route is not None:
+            routes[route] = routes.get(route, 0) + 1
         if NAN_TRAP.on:
             check_nan(name, out)
         return out
 
-    gated.launches = 0
-    gated.routes = {}
-    _COUNTED.append(gated)
     return gated
 
 
 def launch_counts() -> dict[str, int]:
-    """``{wrapper name: launches}`` for every registered kernel wrapper."""
-    return {fn.__name__: fn.launches for fn in _COUNTED}
+    """``{wrapper name: launches}`` for every kernel wrapper, counted since
+    the last reset."""
+    return {name: sum(r.values()) for name, r in _ROUTES.items()}
 
 
 def route_counts() -> dict[str, dict[str, int]]:
-    """``{wrapper name: {route: launches}}`` for every registered kernel
-    wrapper, counted since the last reset."""
-    return {fn.__name__: dict(fn.routes) for fn in _COUNTED}
+    """``{wrapper name: {route: launches}}`` for every kernel wrapper,
+    counted since the last reset."""
+    return {name: dict(r) for name, r in _ROUTES.items()}
 
 
 def reset_launch_counts() -> None:
-    for fn in _COUNTED:
-        fn.launches = 0
-        fn.routes = {}
+    for r in _ROUTES.values():
+        r.clear()
 
 
 def can_fuse_local_cg(dtype, M: int) -> bool:

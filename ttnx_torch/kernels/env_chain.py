@@ -16,8 +16,7 @@ one kernel call; :func:`env_chain_batched_plain` is its plain version.
 :func:`env_chain_A_plain` as its plain version.
 
 B2 and B6 pick their kernel by dtype and shape before the launch, never on
-a failure (:func:`env_route`; each wrapper keeps the route of its last
-launch in its ``route`` attribute): ``"resident"`` — B6 in f32 at R = 64
+a failure (:func:`env_route`): ``"resident"`` — B6 in f32 at R = 64
 or 32 with n = 2, RA = 4, Rb = R: one block a problem walks its whole
 chain with the envs in shared memory (``csrc/env_chain_site.cu``);
 ``"cluster"`` — one chain (B2, or B6 at B = 1) in f32 at R = 64, 32 or 16
@@ -173,6 +172,7 @@ def env_chain_batched_plain(x, A, b, *, left: bool = False,
 
 
 def _launch(name, x, A, b):
+    """Launch B2 on checked operands; returns ``((envs, envs_b), route)``."""
     require_real(name, x, A, b)
     d, R, n, _ = x.shape
     RA, Rb = A.shape[1], b.shape[1]
@@ -190,13 +190,13 @@ def _launch(name, x, A, b):
         _build.call("env_chain_cluster", x.dtype, x.data_ptr(),
                     A.data_ptr(), b.data_ptr(), envs.data_ptr(),
                     envs_b.data_ptr(), d, R, RA, n, Rb, int(left), 0)
-        return envs, envs_b, route
+        return (envs, envs_b), route
     scratch = torch.empty(2 * n * RA * R * R + n * R * Rb, dtype=x.dtype,
                           device=x.device)
     _build.call("env_chain_left" if left else "env_chain_right", x.dtype,
                 x.data_ptr(), A.data_ptr(), b.data_ptr(), envs.data_ptr(),
                 envs_b.data_ptr(), scratch.data_ptr(), d, R, RA, n, Rb)
-    return envs, envs_b, route
+    return (envs, envs_b), route
 
 
 @counted
@@ -205,11 +205,8 @@ def right_env_chain_fused(x, A, b):
     ``A (d, RA, n, n, RA)``, ``b (d, Rb, n, Rb)``. Returns ``(envs
     (d+1, R, RA, R), envs_b (d+1, R, Rb))``."""
     if not use_kernel(x, A, b):
-        return right_env_chain_plain(x, A, b)
-    *out, right_env_chain_fused.route = _launch("right_env_chain_fused", x,
-                                                A, b)
-    right_env_chain_fused.launches += 1
-    return tuple(out)
+        return right_env_chain_plain(x, A, b), None
+    return _launch("right_env_chain_fused", x, A, b)
 
 
 @counted
@@ -217,11 +214,8 @@ def left_env_chain_fused(x, A, b):
     """Whole left-environment build, the forward mirror of
     :func:`right_env_chain_fused`."""
     if not use_kernel(x, A, b):
-        return left_env_chain_plain(x, A, b)
-    *out, left_env_chain_fused.route = _launch("left_env_chain_fused", x, A,
-                                               b)
-    left_env_chain_fused.launches += 1
-    return tuple(out)
+        return left_env_chain_plain(x, A, b), None
+    return _launch("left_env_chain_fused", x, A, b)
 
 
 @counted
@@ -232,7 +226,7 @@ def env_chain_fused_batched(x, A, b, *, left: bool = False,
     ``(envs (B, d+1, R, RA, R), envs_b (B, d+1, R, Rb))``, the left chain
     with ``left=True``; ``raw=True`` gives envs as ``(B, d+1, RA, R, R)``."""
     if not use_kernel(x, A, b):
-        return env_chain_batched_plain(x, A, b, left=left, raw=raw)
+        return env_chain_batched_plain(x, A, b, left=left, raw=raw), None
     require_real("env_chain_fused_batched", x, A, b)
     B, d, R, n, _ = x.shape
     RA, Rb = A.shape[1], b.shape[2]
@@ -269,9 +263,7 @@ def env_chain_fused_batched(x, A, b, *, left: bool = False,
                     A.data_ptr(), b.data_ptr(), envs.data_ptr(),
                     envs_b.data_ptr(), scratch.data_ptr(), B, d, R, RA, n,
                     Rb, int(left), int(raw))
-    env_chain_fused_batched.launches += 1
-    env_chain_fused_batched.route = route
-    return envs, envs_b
+    return (envs, envs_b), route
 
 
 def env_chain_A_plain(x, A, *, left: bool = False):
@@ -293,7 +285,7 @@ def env_chain_A_fused(x, A, *, left: bool = False):
     R)``: the right chain (``envs[k]`` covers sites k..d-1), or the left
     chain with ``left=True`` (``envs[k]`` covers sites 0..k-1)."""
     if not use_kernel(x, A):
-        return env_chain_A_plain(x, A, left=left)
+        return env_chain_A_plain(x, A, left=left), None
     require_real("env_chain_A_fused", x, A)
     d, R, n, _ = x.shape
     RA = A.shape[1]
@@ -313,12 +305,4 @@ def env_chain_A_fused(x, A, *, left: bool = False):
         _build.call("env_chain_A_left" if left else "env_chain_A_right",
                     x.dtype, x.data_ptr(), A.data_ptr(), envs.data_ptr(),
                     scratch.data_ptr(), d, R, RA, n)
-    env_chain_A_fused.launches += 1
-    env_chain_A_fused.route = route
-    return envs
-
-
-right_env_chain_fused.route = None
-left_env_chain_fused.route = None
-env_chain_fused_batched.route = None
-env_chain_A_fused.route = None
+    return envs, route

@@ -8,8 +8,7 @@ Gram-based rounding needs the right Gram matrices of the applied chain::
 The backward sweep is pure matrix products. :func:`gram_chain_fused` runs
 it through a hand-written Hopper kernel for a CUDA tensor and through
 :func:`gram_chain_plain` for a CPU tensor. The kernel is chosen by dtype
-and shape before the launch, never on a failure (:func:`gram_route`; the
-wrapper keeps the route of its last launch in its ``route`` attribute):
+and shape before the launch, never on a failure (:func:`gram_route`):
 ``"grid"`` — f32 at n = 2 and R = 64, 128 or 256 (the heat CN step's
 stacks): one persistent cooperative launch walks the whole chain with
 every site spread over the card (``csrc/gram_chain_grid.cu``);
@@ -59,7 +58,7 @@ def gram_chain_fused(y: torch.Tensor) -> torch.Tensor:
     kernel for a CUDA tensor (real f32/f64), the plain version for a CPU
     tensor. Returns ``Gs (d, R, R)`` with ``Gs[k] = G_{k+1}``."""
     if not use_kernel(y):
-        return gram_chain_plain(y)
+        return gram_chain_plain(y), None
     require_real("gram_chain_fused", y)
     if y.dim() != 4 or y.shape[1] != y.shape[3]:
         raise ValueError(f"gram_chain_fused: y must be (d, R, n, R), got "
@@ -78,9 +77,4 @@ def gram_chain_fused(y: torch.Tensor) -> torch.Tensor:
     else:
         _build.call("gram_chain", y.dtype, y.data_ptr(), out.data_ptr(),
                     scratch.data_ptr(), d, R, n)
-    gram_chain_fused.launches += 1
-    gram_chain_fused.route = route
-    return out
-
-
-gram_chain_fused.route = None
+    return out, route

@@ -11,8 +11,7 @@ row of ``Q`` and every later alpha exactly zero; ``betas[iters-1]`` is
 always 0. ``iters`` is keyword-only.
 
 The kernel is picked by dtype and size, never on a failure
-(:func:`lanczos_route`; the last launch's route is
-``lanczos_fused.route``): ``"cluster"`` — f32 with ``M <=
+(:func:`lanczos_route`): ``"cluster"`` — f32 with ``M <=
 CLUSTER_MAX_M``, one cluster of ``CLUSTER`` CTAs (a non-portable size),
 each holding as many of its rows of K in shared memory as
 :func:`cluster_layout` finds room for and streaming the rest from L2
@@ -102,7 +101,7 @@ def lanczos_fused(K, v0, *, iters: int = 16):
     vector ``v0 (M,)``: one Hopper kernel launch for CUDA tensors (real
     f32/f64), the plain version for CPU tensors."""
     if not use_kernel(K, v0):
-        return lanczos_plain(K, v0, iters=iters)
+        return lanczos_plain(K, v0, iters=iters), None
     require_real("lanczos_fused", K, v0)
     M = K.shape[0]
     if K.shape != (M, M) or v0.shape != (M,) or iters < 1:
@@ -116,9 +115,4 @@ def lanczos_fused(K, v0, *, iters: int = 16):
     _build.call("lanczos_cluster" if route == "cluster" else "lanczos",
                 K.dtype, K.data_ptr(), v0.data_ptr(), Q.data_ptr(),
                 alphas.data_ptr(), betas.data_ptr(), M, int(iters))
-    lanczos_fused.launches += 1
-    lanczos_fused.route = route
-    return Q, alphas, betas
-
-
-lanczos_fused.route = None
+    return (Q, alphas, betas), route

@@ -13,8 +13,7 @@ by BiCGStab, always from a cold start as the JAX kernel does.
 third positional parameter, ahead of ``iters``).
 
 B3 and B10 pick their kernels by dtype and size, never on a failure
-(:func:`cg_route`, :func:`bicgstab_route`; the last launch's route is
-``cg_solve_fused.route`` / ``bicgstab_solve_fused.route``):
+(:func:`cg_route`, :func:`bicgstab_route`):
 ``"cluster"`` — f32 with ``M <= CG_CLUSTER_MAX_M`` / ``CLUSTER_MAX_M``,
 one cluster of 8 CTAs holding K's rows in their shared memory
 (``csrc/dense_cluster.cuh``); ``"l2"`` — f64 and larger M, one block
@@ -115,7 +114,7 @@ def cg_solve_fused(K, rhs, *, x0=None, iters: int = 48):
     CUDA tensors (real f32/f64), the plain version for CPU tensors."""
     args = (K, rhs) if x0 is None else (K, rhs, x0)
     if not use_kernel(*args):
-        return cg_solve_plain(K, rhs, x0=x0, iters=iters)
+        return cg_solve_plain(K, rhs, x0=x0, iters=iters), None
     require_real("cg_solve_fused", *args)
     M = K.shape[0]
     if K.shape != (M, M) or rhs.shape != (M,) or (
@@ -128,12 +127,7 @@ def cg_solve_fused(K, rhs, *, x0=None, iters: int = 48):
     _build.call("cg_solve_cluster" if route == "cluster" else "cg_solve",
                 K.dtype, K.data_ptr(), rhs.data_ptr(), x0c.data_ptr(),
                 out.data_ptr(), M, int(iters), int(x0 is not None))
-    cg_solve_fused.launches += 1
-    cg_solve_fused.route = route
-    return out
-
-
-cg_solve_fused.route = None
+    return out, route
 
 
 def bicgstab_solve_plain(K, rhs, *, iters: int = 32):
@@ -166,7 +160,7 @@ def bicgstab_solve_fused(K, rhs, *, iters: int = 32):
     ``iters`` BiCGStab steps from zero: one Hopper kernel launch for CUDA
     tensors (real f32/f64), the plain version for CPU tensors."""
     if not use_kernel(K, rhs):
-        return bicgstab_solve_plain(K, rhs, iters=iters)
+        return bicgstab_solve_plain(K, rhs, iters=iters), None
     require_real("bicgstab_solve_fused", K, rhs)
     M = K.shape[0]
     if K.shape != (M, M) or rhs.shape != (M,) or iters < 0:
@@ -178,9 +172,4 @@ def bicgstab_solve_fused(K, rhs, *, iters: int = 32):
     _build.call("bicgstab_cluster" if route == "cluster" else "bicgstab",
                 K.dtype, K.data_ptr(), rhs.data_ptr(), out.data_ptr(), M,
                 int(iters))
-    bicgstab_solve_fused.launches += 1
-    bicgstab_solve_fused.route = route
-    return out
-
-
-bicgstab_solve_fused.route = None
+    return out, route

@@ -19,8 +19,7 @@ complex dtypes too).
 
 The kernel is chosen by dtype, shape and whether the wrapper holds one
 problem or a batch, before the launch and never on a failure
-(:func:`matfree_route`); each wrapper keeps the route of its last launch
-in its ``route`` attribute:
+(:func:`matfree_route`):
 
 * ``"cluster"`` -- ``csrc/local_cg_cluster.cu``: B4 (one problem) in
   float32 at ``(R, n, RA)`` in :data:`RESIDENT_SHAPES`, on one
@@ -30,7 +29,8 @@ in its ``route`` attribute:
   shapes, one block a problem; L and Renv stay in shared memory for the
   whole solve, the apply runs on B7's site engine.
 * ``"streamed"`` -- ``csrc/local_cg_mf.cu`` (operands streamed from L2
-  every apply): float64 and every other shape.
+  every apply): float64 and every other shape; one problem is its batch of
+  one.
 
 ``x0`` and ``iters`` are keyword-only.
 """
@@ -85,12 +85,9 @@ def _launch(L, Ac, Renv, rhs, mask, x0, iters: int, batched: bool):
         scratch = torch.empty(B * per_problem, dtype=rhs.dtype,
                               device=rhs.device)
         ptrs.append(scratch.data_ptr())
-        if route == "resident":
-            entry, sizes = "cg_matfree_site", (B,)
-        elif batched:
-            entry, sizes = "cg_matfree_batched", (B,)
-        else:
-            entry, sizes = "cg_matfree", ()
+        entry = ("cg_matfree_site" if route == "resident"
+                 else "cg_matfree_batched")
+        sizes = (B,)
     _build.call(entry, rhs.dtype, *ptrs, *sizes, R, RA, n, int(iters),
                 int(x0 is not None))
     return out, route
@@ -124,7 +121,8 @@ def cg_matfree_fused(L, Ac, Renv, rhs, mask, *, x0=None, iters: int = 32):
     ``x (R, n, R)``."""
     args = (L, Ac, Renv, rhs, mask) + (() if x0 is None else (x0,))
     if not use_kernel(*args):
-        return cg_matfree_plain(L, Ac, Renv, rhs, mask, x0=x0, iters=iters)
+        return cg_matfree_plain(L, Ac, Renv, rhs, mask, x0=x0,
+                                iters=iters), None
     require_real("cg_matfree_fused", *args)
     R, RA, _ = L.shape
     n = rhs.shape[1]
@@ -134,10 +132,7 @@ def cg_matfree_fused(L, Ac, Renv, rhs, mask, *, x0=None, iters: int = 32):
             or mask.shape != vec or (x0 is not None and x0.shape != vec)):
         raise ValueError("cg_matfree_fused: expected L/Renv (R, RA, R), "
                          "Ac (RA, n, n, RA), rhs/mask/x0 (R, n, R)")
-    out, cg_matfree_fused.route = _launch(L, Ac, Renv, rhs, mask, x0,
-                                          iters, batched=False)
-    cg_matfree_fused.launches += 1
-    return out
+    return _launch(L, Ac, Renv, rhs, mask, x0, iters, batched=False)
 
 
 def _pdot(a, b):
@@ -186,7 +181,7 @@ def cg_matfree_fused_batched(L, Ac, Renv, rhs, mask, *, x0=None,
     args = (L, Ac, Renv, rhs, mask) + (() if x0 is None else (x0,))
     if not use_kernel(*args):
         return cg_matfree_batched_plain(L, Ac, Renv, rhs, mask, x0=x0,
-                                        iters=iters)
+                                        iters=iters), None
     require_real("cg_matfree_fused_batched", *args)
     B, R, RA, _ = L.shape
     n = rhs.shape[2]
@@ -197,11 +192,4 @@ def cg_matfree_fused_batched(L, Ac, Renv, rhs, mask, *, x0=None,
         raise ValueError("cg_matfree_fused_batched: expected L/Renv "
                          "(B, R, RA, R), Ac (RA, n, n, RA), rhs/x0 "
                          "(B, R, n, R), mask (R, n, R)")
-    out, cg_matfree_fused_batched.route = _launch(
-        L, Ac, Renv, rhs, mask, x0, iters, batched=True)
-    cg_matfree_fused_batched.launches += 1
-    return out
-
-
-cg_matfree_fused.route = None
-cg_matfree_fused_batched.route = None
+    return _launch(L, Ac, Renv, rhs, mask, x0, iters, batched=True)

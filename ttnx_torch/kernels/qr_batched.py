@@ -68,12 +68,11 @@ def qr_batched(V: torch.Tensor, *, rows: bool = False):
     tensor. Returns ``(Q, R)`` for ``rows=False`` and ``(Q^T, R^T)`` of
     ``V.transpose(1, 2)`` for ``rows=True``."""
     if not use_kernel(V):
-        return qr_batched_plain(V, rows=rows)
+        return qr_batched_plain(V, rows=rows), None
     B, m, k = kernel_shape(V, rows)
     V = V.contiguous()
     q = torch.empty_like(V)
     r = torch.empty((B, k, k), dtype=V.dtype, device=V.device)
     _build.call("qr_batched", V.dtype, V.data_ptr(), q.data_ptr(),
                 r.data_ptr(), B, m, k, int(rows))
-    qr_batched.launches += 1
-    return q, r
+    return (q, r), "kernel"

@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ttnx_torch.config import matmul_precision
 from ttnx_torch.core.canonical import orthogonalize
 from ttnx_torch.core.tt import TTOperator, TTVector
 from ttnx_torch.kernels.dispatch import can_fuse_local_cg
@@ -435,8 +436,6 @@ def als_eigsolve_sweeps(A_stack, x_stack, masks, n_sweeps: int = 2):
     sweeps, TF32 off; returns ``(x_stack, energies)``, the ``2 (d - 1)``
     local eigenvalues of each sweep in the order computed. Two B8 launches
     a sweep for real dtypes."""
-    from ttnx_torch.solvers.round_scan import matmul_precision  # imports us
-
     x = x_stack
     lams = []
     with matmul_precision("highest"):

@@ -25,6 +25,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ttnx_torch.config import matmul_precision
 from ttnx_torch.core.canonical import orthogonalize
 from ttnx_torch.core.linalg import thin_svd
 from ttnx_torch.core.tt import TTOperator, TTVector
@@ -38,7 +39,6 @@ from ttnx_torch.kernels.local_cg import _safe_div
 from ttnx_torch.solvers.als_scan import (_left_env_stack, _right_env_stack,
                                          pack_op, pack_tt, rank_masks,
                                          unpack_tt)
-from ttnx_torch.solvers.round_scan import matmul_precision
 
 __all__ = ["dmrg_sweep", "dmrg_linsolve_scan", "dmrg_eig_sweep",
            "dmrg_eigsolve_scan", "cut_off_mask"]

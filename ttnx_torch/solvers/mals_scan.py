@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ttnx_torch.config import matmul_precision
 from ttnx_torch.core.linalg import thin_svd
 from ttnx_torch.core.tt import TTOperator, TTVector
 from ttnx_torch.kernels.env_chain import (boundary_envs, env_chain_A_plain,
@@ -28,7 +29,6 @@ from ttnx_torch.solvers.als_scan import (_left_env_stack, _right_env_stack,
                                          unpack_tt)
 from ttnx_torch.solvers.dmrg_scan import (_assemble_K2, _default_rmax,
                                           _first_mask, _packed, _window_mask)
-from ttnx_torch.solvers.round_scan import matmul_precision
 
 __all__ = ["mals_sweep", "mals_linsolve_scan", "mals_eig_sweep",
            "mals_eigsolve_scan"]

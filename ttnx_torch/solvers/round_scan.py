@@ -10,11 +10,12 @@ kernel B1 (:mod:`ttnx_torch.kernels.gram`) for real dtypes.
 
 from __future__ import annotations
 
-from contextlib import contextmanager
+from contextlib import nullcontext
 
 import numpy as np
 import torch
 
+from ttnx_torch.config import matmul_precision
 from ttnx_torch.core.linalg import thin_svd
 from ttnx_torch.core.tt import r_and_d_to_rks
 from ttnx_torch.kernels.env_chain import env_route
@@ -25,7 +26,7 @@ from ttnx_torch.solvers.als_scan import (SOLVERS, als_sweeps, pack_op,
 from ttnx_torch.utils.profiling import span
 
 __all__ = ["matvec_padded", "tt_round_scan", "tt_round_gram", "round_masks",
-           "cn_step", "make_cn_step", "make_cn_evolve", "matmul_precision"]
+           "cn_step", "make_cn_step", "make_cn_evolve"]
 
 
 def matvec_padded(A_stack, x_stack):
@@ -163,25 +164,6 @@ def round_masks(in_rks, R_out: int, dims):
     return r_and_d_to_rks([min(r, R_out) for r in in_rks], dims, rmax=R_out)
 
 
-@contextmanager
-def matmul_precision(precision: str | None):
-    """``'highest'`` turns TF32 off for matmuls and cuDNN inside the block
-    and restores the previous flags afterwards; ``None`` or ``'float32'``
-    leave the flags as they are."""
-    if precision != "highest":
-        yield
-        return
-    saved = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32,
-         torch.backends.cudnn.allow_tf32) = saved
-
-
 def cn_step(lhs_stack, rhs_stack, u_stack, guess_noise, masks_u,
             masks_rhs_big, masks_u_out, sweep_count: int = 4,
             solver: str = "lu", orth: str = "qr", round_rhs: bool = True,
@@ -193,8 +175,10 @@ def cn_step(lhs_stack, rhs_stack, u_stack, guess_noise, masks_u,
     guess only: a rank-deficient state makes the ALS environments singular;
     the converged solution does not depend on the guess, so the noise never
     reaches the output while the rhs stays exact. ``precision='highest'``
-    keeps every matmul of the step in full f32 (no TF32)."""
-    with matmul_precision(precision):
+    keeps every matmul of the step in full f32 (no TF32); any other value
+    leaves the TF32 flags as they are."""
+    with (matmul_precision("highest") if precision == "highest"
+          else nullcontext()):
         R_out = u_stack.shape[1]
         big = matvec_padded(rhs_stack, u_stack)
         if not round_rhs:
